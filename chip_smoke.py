@@ -5,14 +5,23 @@
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc.
 It builds the port's kernels from the checkout's sources, holds each
-kernel against its plain torch version on the card, drives the main path
-(``LunarLander(device="cuda")``: ``reset_fn_batch`` + ``rollout_batch`` at
-B=8192) and checks that the path launched the kernels, that its outputs
-are finite and that a small rollout on the card agrees with the same
-rollout on the CPU.  It prints the card's name and power limit, the
-timings, one JSON line of per-kernel results and, last, one JSON line
-``{"ok": true, "device": ...}``.  Any failed phase raises and the script
-exits non-zero; without a CUDA device it exits non-zero at once.
+kernel against its plain torch version on the card, drives the two paths
+of the port through their entry points and checks that each path
+launched its kernels, that its outputs are finite and that a small run on
+the card agrees with the same run on the CPU:
+
+* the rollout: ``LunarLander()`` (the card), ``reset_fn_batch`` +
+  ``rollout_batch`` at B=8192; it runs the contact-solve kernel;
+* the train step: ``parallel.rollout.make_train_step`` at B=8192, horizon
+  100, 4 checkpoint segments, the 9-32-2 tanh policy and Adam at lr 3e-3
+  (the configuration of ``bench.py --train``); it runs the contact-solve
+  kernel in the forward and in each segment's recompute, and its reverse
+  pass in the backward.
+
+It prints the card's name and power limit, the timings, one JSON line of
+per-kernel results and, last, one JSON line ``{"ok": true, "device":
+...}``.  Any failed phase raises and the script exits non-zero; without a
+CUDA device it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -27,11 +36,22 @@ import numpy as np
 import torch
 
 B = 8192
-STEPS = 500
+STEPS = 200
 ATOL = 1e-5  # kernel vs plain version: the JAX tests' bar, float32 rounding
+RTOL = 2e-4  # reverse pass vs plain VJP: the JAX package's bar for its backward
 SMALL_B, SMALL_STEPS = 1024, 60
 CPU_ATOL = 1e-3  # card vs CPU rollout after 60 steps (rounding grows with steps)
 CPU_DONE_SHARE = 0.99
+HORIZON, SEGMENTS, TRAIN_CALLS = 100, 4, 3
+SMALL_H = 12
+PROFILE_H = 8  # the profiled train step: short, so its trace stays small
+# card vs CPU train step: the loss is a mean of 12 rewards that agree to
+# float32 rounding; the gradients pass through 12 contact steps and their
+# backward, where the 2x2 block solves amplify rounding differences (the
+# bar of tests/test_torch_train.py between the port and JAX on the CPU)
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
 
 def fail(msg):
@@ -69,6 +89,41 @@ def policy(params, obs):
     return torch.tanh(obs @ params[0] + params[1])
 
 
+def mlp_params(device):
+    """The train policy's weights: obs 9 -> 32 tanh -> 2 tanh (numpy, seeded)."""
+    rng = np.random.default_rng(0)
+    arrays = {
+        "w1": rng.standard_normal((9, 32)) * 0.3,
+        "b1": np.zeros(32),
+        "w2": rng.standard_normal((32, 2)) * 0.1,
+        "b2": np.zeros(2),
+    }
+    return {k: torch.tensor(v, dtype=torch.float32, device=device).requires_grad_(True)
+            for k, v in arrays.items()}
+
+
+def mlp(p, obs):
+    return torch.tanh(torch.tanh(obs @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"])
+
+
+def solver_bound_ms(n_active, B, C, n, J, iterations, position_iterations, bwd):
+    """The least time of one solve (or its reverse pass) on this card: the
+    larger of its bytes (each input read once, each output written once)
+    over the HBM rate and its float32 operations over the float32 rate.
+    Operations are counted for the run's active lanes from the kernels'
+    arithmetic: about 80 a lane for the setup, 45 for each normal or
+    friction pass and 38 for each position pass, 60 for each joint of a
+    world; the reverse pass recomputes the forward and does about twice
+    its work again."""
+    lane_in = C * B * (4 * 4 + 1)  # pen_x, pen_y, pt_x, pt_y float32, active uint8
+    body = n * B * 4
+    nbytes = lane_in + 12 * body + (6 * body + 4 * C * B * 4 if bwd else 0)
+    ops = n_active * (80 + 90 * iterations + 38 * position_iterations) + 60 * J * B
+    ops *= 3 if bwd else 1
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def zero_policy(_, obs):
     return torch.zeros((obs.shape[0], 2), device=obs.device)
 
@@ -93,6 +148,44 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def profile_train(loss_fn, params, states, gpu):
+    """One short train step (forward + backward) under ``torch.profiler``,
+    its kernels already warm from the full-width steps: device kernels,
+    their summed time, the wall time of the forward and of the backward,
+    and the kernels that take the most device time.  The profiler slows
+    the host's launches, so the busy share it shows is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(params, states)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+        fwd_us = 1e6 * (t1 - t0)
+    for p in params.values():
+        p.grad = None
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + us)
+    count = sum(n for n, _ in by_name.values())
+    busy = sum(t for _, t in by_name.values())
+    check(count > 0, "the profiler saw no device kernels")
+    print(f"[profile] train step B={B} h={PROFILE_H} (2 segments): {count} device kernels, "
+          f"{busy / 1e3:.2f} ms device time in {wall_us / 1e3:.2f} ms wall (forward "
+          f"{fwd_us / 1e3:.2f} ms, backward {(wall_us - fwd_us) / 1e3:.2f} ms), busy "
+          f"{busy / wall_us:.3f} of it, on {gpu}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    for name, (n, t) in top:
+        print(f"[profile]   {t / 1e3:9.3f} ms in {n:6d} launches: {name[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run only on an NVIDIA GPU")
@@ -108,7 +201,9 @@ def main():
     from parallax_tpu_torch.engine.batched import _to_soa, collide_batched
     from parallax_tpu_torch.envs.lunar_lander import LunarLander
     from parallax_tpu_torch.ops import _build, contact_solver
+    from parallax_tpu_torch.parallel import rollout
     from parallax_tpu_torch.utils import prng
+    from parallax_tpu_torch.utils.pytree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -124,9 +219,10 @@ def main():
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s)")
 
-    # -- phase 3: kernel against its plain version ------------------------------
-    env = LunarLander(device=dev)
+    # -- phase 3: kernels against their plain versions -------------------------
+    env = LunarLander()
     cfg = env.world.config
+    C, n, J = env.world.table.n_contacts, env.world.n_bodies, env.world.joints.n_joints
     st = lowered(env.reset_fn_batch(keys_for(B, 0, dev)), dev)
     st, _ = env.rollout_batch(st, zero_policy, 40)
     aux = env.plane_pack(st)
@@ -150,34 +246,67 @@ def main():
     print(f"[kernel] contact_solve_fwd vs plain at B={B}: {n_active} active lanes, "
           f"max |diff| {max_err:.3e} <= {ATOL}")
 
+    rng = np.random.default_rng(5)
+    cot = type(s)(*(torch.from_numpy(rng.standard_normal((n, B)).astype(np.float32)).to(dev)
+                    for _ in range(6)))
+    solve_args = (cfg.solver_iterations, cfg.position_iterations, cfg.dt, cfg.contact)
+    got = contact_solver.solve_contacts_bwd(env.world, s, con, cot, *solve_args)
+    want = contact_solver.solve_contacts_bwd_plain(env.world, s, con, cot, *solve_args)
+    torch.cuda.synchronize()
+    bwd_err = 0.0
+    names = list(s._fields) + ["pen_x", "pen_y", "pt_x", "pt_y"]
+    for f, a, b in zip(names, (*got[0], *got[1:]), (*want[0], *want[1:])):
+        err = (a - b).abs()
+        check(torch.isfinite(a).all().item(), f"reverse pass: non-finite {f}")
+        check((err <= ATOL + RTOL * b.abs()).all().item(),
+              f"reverse pass vs plain VJP: {f} differs by {err.max().item()}")
+        bwd_err = max(bwd_err, err.max().item())
+    print(f"[kernel] contact_solve_bwd vs plain VJP at B={B}: max |diff| {bwd_err:.3e} "
+          f"(rtol {RTOL}, atol {ATOL})")
+
     def kernel_call():
-        contact_solver.solve_contacts(env.world, s, con, cfg.solver_iterations,
-                                      cfg.position_iterations, cfg.dt, cfg.contact)
+        contact_solver.solve_contacts(env.world, s, con, *solve_args)
 
     def plain_call():
-        contact_solver.solve_contacts_plain(env.world, s, con, cfg.solver_iterations,
-                                            cfg.position_iterations, cfg.dt, cfg.contact)
+        contact_solver.solve_contacts_plain(env.world, s, con, *solve_args)
 
-    for fn in (kernel_call, plain_call):
-        cuda_ms(fn, 3)  # warm-up
-    turns = [cuda_ms(fn, 50) for fn in (kernel_call, plain_call, kernel_call, plain_call)]
-    kernel_ms = min(turns[0], turns[2])
-    plain_ms = min(turns[1], turns[3])
+    def bwd_call():
+        contact_solver.solve_contacts_bwd(env.world, s, con, cot, *solve_args)
+
+    def bwd_plain_call():
+        contact_solver.solve_contacts_bwd_plain(env.world, s, con, cot, *solve_args)
+
+    def turns(fn, plain, reps):
+        for f in (fn, plain):
+            cuda_ms(f, 3)  # warm-up
+        t = [cuda_ms(f, reps) for f in (fn, plain, fn, plain)]
+        return min(t[0], t[2]), min(t[1], t[3]), t
+
+    kernel_ms, plain_ms, t = turns(kernel_call, plain_call, 50)
     print(f"[time] solve+joints per call at B={B}: kernel {kernel_ms:.4f} ms, "
-          f"plain torch {plain_ms:.4f} ms (turns {[round(x, 4) for x in turns]}) "
-          f"on {gpu}")
+          f"plain torch {plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+    bwd_ms, bwd_plain_ms, t = turns(bwd_call, bwd_plain_call, 20)
+    print(f"[time] reverse pass per call at B={B}: kernel {bwd_ms:.4f} ms, "
+          f"plain autograd {bwd_plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+    counts = (n_active, B, C, n, J, cfg.solver_iterations, cfg.position_iterations)
+    fwd_bound, fwd_by = solver_bound_ms(*counts, bwd=False)
+    bwd_bound, bwd_by = solver_bound_ms(*counts, bwd=True)
+    print(f"[bound] at B={B}, {n_active} active lanes: forward {fwd_bound:.5f} ms "
+          f"({fwd_by}), reverse pass {bwd_bound:.5f} ms ({bwd_by})")
 
-    # -- phase 4: the main path ---------------------------------------------------
+    # -- phase 4: the rollout path ---------------------------------------------------
     params = policy_params(dev)
     states = env.reset_fn_batch(keys_for(B, 1, dev))
     torch.cuda.synchronize()
     contact_solver.launches = 0
+    contact_solver.bwd_launches = 0
     t0 = time.perf_counter()
     final, traj = env.rollout_batch(states, policy, STEPS, params)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = contact_solver.launches
     check(launches == STEPS, f"kernel launched {launches} times in {STEPS} steps")
+    check(contact_solver.bwd_launches == 0, "a forward rollout launched the reverse pass")
     check(torch.isfinite(traj.obs).all().item(), "non-finite obs")
     check(torch.isfinite(traj.reward).all().item(), "non-finite reward")
     check(tuple(traj.obs.shape) == (STEPS, B, 9), f"obs shape {tuple(traj.obs.shape)}")
@@ -209,17 +338,17 @@ def main():
           f"card vs CPU rollout differ beyond {CPU_ATOL}")
     check(done_share >= CPU_DONE_SHARE, f"done sequences agree in {done_share} of worlds")
 
-    # -- phase 5: times ------------------------------------------------------------
-    n = 200
+    # -- phase 5: times of the rollout --------------------------------------------------
+    steps = 200
     states = env.reset_fn_batch(keys_for(B, 5, dev))
     env.rollout_batch(states, policy, 20, params)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    env.rollout_batch(states, policy, n, params)
+    env.rollout_batch(states, policy, steps, params)
     torch.cuda.synchronize()
-    rate = B * n / (time.perf_counter() - t0)
+    rate = B * steps / (time.perf_counter() - t0)
     print(f"[time] LunarLander rollout B={B}: {rate:.1f} env-steps/s "
-          f"({n} chained steps, one sync) on {gpu}")
+          f"({steps} chained steps, one sync) on {gpu}")
 
     ps = env._to_planes(states)
     acts = torch.zeros((B, 2), device=dev)
@@ -235,16 +364,91 @@ def main():
         cuda_ms(fn, 3)
         print(f"[time] {label}: {cuda_ms(fn, 20):.4f} ms per call at B={B} on {gpu}")
 
-    print(json.dumps({"kernels": [{
-        "name": "contact_solve_fwd",
-        "route": "cuda",
-        "source": "parallax_tpu_torch/csrc/contact_solver.cu",
-        "replaces": "parallax_tpu/ops/pallas_solver.py:581",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # -- phase 6: the train path, card against CPU ----------------------------------
+    cpu_st = lowered(env_cpu.reset_fn_batch(keys_for(SMALL_B, 6, "cpu")), "cpu")
+    cpu_st, _ = env_cpu.rollout_batch(cpu_st, zero_policy, 40)
+    res = {}
+    for d, e in (("cuda", env), ("cpu", env_cpu)):
+        st = tree_map(lambda x: x.to(d), cpu_st)
+        p = mlp_params(d)
+        loss, _ = rollout.make_loss_fn(e, mlp, SMALL_H, checkpoint_segments=2)(p, st)
+        res[d] = (loss.item(), [x.cpu() for x in torch.autograd.grad(loss, list(p.values()))])
+    (loss_g, grads_g), (loss_c, grads_c) = res["cuda"], res["cpu"]
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    grad_rel = max((a - b).norm().item() / b.norm().item() for a, b in zip(grads_g, grads_c))
+    print(f"[check] train loss+grads B={SMALL_B} h={SMALL_H} from the contact state, card vs "
+          f"CPU: loss {loss_g:.7f} vs {loss_c:.7f} (rel {loss_rel:.2e}), policy grads max "
+          f"rel diff in norm {grad_rel:.2e}")
+    check(loss_rel <= LOSS_RTOL, f"train loss: card vs CPU rel diff {loss_rel}")
+    check(grad_rel <= GRAD_RTOL, f"policy grads: card vs CPU rel diff {grad_rel}")
+    check(all(g.norm().item() > 0 for g in grads_g), "a policy gradient is zero")
+
+    # -- phase 7: the train path at full width ----------------------------------------
+    params = mlp_params(dev)
+    step = rollout.make_train_step(env, mlp, rollout.adam(params, 3e-3), HORIZON,
+                                   checkpoint_segments=SEGMENTS)
+    states = env.reset_fn_batch(keys_for(B, 7, dev))
+    params, states, m = step(params, states)  # warm-up
+    torch.cuda.synchronize()
+    check(np.isfinite(m["loss"].item()), "warm-up train step: non-finite loss")
+    torch.cuda.reset_peak_memory_stats()
+    contact_solver.launches = 0
+    contact_solver.bwd_launches = 0
+    secs = []
+    for _ in range(TRAIN_CALLS):
+        f0, b0 = contact_solver.launches, contact_solver.bwd_launches
+        t0 = time.perf_counter()
+        params, states, m = step(params, states)
+        loss = m["loss"].item()  # synchronizes
+        secs.append(time.perf_counter() - t0)
+        fl, bl = contact_solver.launches - f0, contact_solver.bwd_launches - b0
+        check(np.isfinite(loss), f"train step: non-finite loss {loss}")
+        check(fl == 2 * HORIZON, f"train step: {fl} forward launches, want {2 * HORIZON}")
+        check(bl == HORIZON, f"train step: {bl} reverse-pass launches, want {HORIZON}")
+        print(f"[train] step B={B} h={HORIZON} segments={SEGMENTS}: loss {loss:.6f}, "
+              f"{secs[-1]:.3f} s, launches fwd {fl} bwd {bl}")
+    train_launches, train_bwd_launches = contact_solver.launches, contact_solver.bwd_launches
+    check(all(torch.isfinite(p).all().item() for p in params.values()), "non-finite params")
+    train_rate = B * HORIZON / min(secs)
+    print(f"[time] lunarlander_train_env_steps_per_sec_per_chip_batch{B}_h{HORIZON}: "
+          f"{train_rate:.1f} env-steps/s (best of {TRAIN_CALLS} train steps, "
+          f"{[round(x, 3) for x in secs]} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) on {gpu}")
+
+    print(f"[main] train path: {train_launches} forward and {train_bwd_launches} reverse-pass "
+          f"launches in {TRAIN_CALLS} train steps")
+
+    # where a train step's time goes: the forward under autograd, then the
+    # backward (each segment's recompute and its reverse passes)
+    profile_train(rollout.make_loss_fn(env, mlp, PROFILE_H, 2), params, states, gpu)
+    print(json.dumps({"kernels": [
+        {
+            "name": "contact_solve_fwd",
+            "route": "cuda",
+            "source": "parallax_tpu_torch/csrc/contact_solver.cu",
+            "replaces": "parallax_tpu/ops/pallas_solver.py:581",
+            "launches": launches,
+            "max_abs_err": max_err,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": fwd_bound,
+            "bound_by": fwd_by,
+            "library_ms": None,
+        },
+        {
+            "name": "contact_solve_bwd",
+            "route": "cuda",
+            "source": "parallax_tpu_torch/csrc/contact_solver_bwd.cu",
+            "replaces": "parallax_tpu/ops/pallas_solver.py:534",
+            "launches": train_bwd_launches,
+            "max_abs_err": bwd_err,
+            "ms": bwd_ms,
+            "plain_ms": bwd_plain_ms,
+            "bound_ms": bwd_bound,
+            "bound_by": bwd_by,
+            "library_ms": None,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

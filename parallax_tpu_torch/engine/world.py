@@ -3,7 +3,8 @@
 ``World.build`` turns host-side body definitions into the static pair
 table and float32 parameter tensors, and moves every static table the
 batched step reads (vertex tables, lane-to-body indices, the contact
-kernel's operands) to ``device`` once.  The batched step itself is
+kernel's operands) to ``device`` (the GPU unless the caller asks for the
+CPU) once.  The batched step itself is
 ``engine.batched.physics_core``; the per-world ``World.step`` is not ported
 yet (ROADMAP Queue 1 item 11).
 """
@@ -21,6 +22,7 @@ from parallax_tpu_torch.dynamics.impulses import DEFAULT_SOLVER, ContactSolverCo
 from parallax_tpu_torch.dynamics.joints import Joints
 from parallax_tpu_torch.engine.collider import PairTable, build_pair_table
 from parallax_tpu_torch.geometry.shapes import Parts, ShapeSpec
+from parallax_tpu_torch.utils.device import resolve as resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +98,9 @@ class World:
         joints: Optional[Joints] = None,
         collision_filter: Sequence[tuple] = (),
         part_collision_filter: Sequence[tuple] = (),
-        device="cpu",
+        device="cuda",
     ) -> tuple["World", BodyState]:
-        device = torch.device(device)
+        device = resolve_device(device)
         specs, owner = [], []
         for i, b in enumerate(bodies):
             for s in b.shapes:

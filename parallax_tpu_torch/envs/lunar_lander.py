@@ -31,6 +31,7 @@ from parallax_tpu_torch.envs.base import Environment
 from parallax_tpu_torch.envs.plane_env import PlaneEnvMixin, init_planes_of
 from parallax_tpu_torch.geometry.shapes import MAX_VERTS, polygon
 from parallax_tpu_torch.utils import prng
+from parallax_tpu_torch.utils.device import resolve as resolve_device
 
 # ---- reference constants ---------------------------------------------------
 
@@ -179,11 +180,12 @@ def terrain_vertices_batch(keys):
 
 
 class LunarLander(PlaneEnvMixin, Environment):
-    """Batched LunarLander on ``device``; see the module docstring."""
+    """Batched LunarLander on ``device`` (the GPU unless the caller asks for
+    the CPU); see the module docstring."""
 
-    def __init__(self, config: LanderConfig = LanderConfig(), device="cpu"):
+    def __init__(self, config: LanderConfig = LanderConfig(), device="cuda"):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         lander = BodyDef(
             shapes=[polygon(LANDER_POLY * SCALE)],

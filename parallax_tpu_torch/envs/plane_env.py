@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from parallax_tpu_torch.dynamics.bodies import BodyState
 from parallax_tpu_torch.engine.batched import _SoA, _from_soa, _to_soa, physics_core
@@ -165,29 +166,35 @@ class PlaneEnvMixin:
         Batches larger than ``max_chunk`` (default
         ``parallel.rollout.ROLLOUT_CHUNK``) run as sequential waves.
         ``traj_select(ts) -> tree`` filters what each step emits.
+        ``remat_steps=True`` runs each step under
+        ``torch.utils.checkpoint``: under autograd only the per-step carry
+        is kept and the step's internals are recomputed in the backward (a
+        memory against recompute trade for training; the same values).
         """
         if mesh is not None:
             raise NotImplementedError(
                 "rollouts over a device mesh are not ported yet (ROADMAP "
                 "Queue 1 item 9)"
             )
-        if remat_steps:
-            raise NotImplementedError(
-                "remat_steps belongs to the train path, not ported yet "
-                "(ROADMAP Queue 1 item 7)"
-            )
         if n_steps < 1:
             raise ValueError(f"n_steps must be positive, got {n_steps}")
         from parallax_tpu_torch.parallel.rollout import chunked_rollout
+
+        def step(ps):
+            obs = self.plane_obs(ps.s, ps.aux)
+            actions = policy_fn(policy_params, obs)
+            ps, ts = self._step_planes(ps, actions)
+            return ps, traj_select(ts) if traj_select else ts
 
         def one_wave(chunk_states):
             ps = self._to_planes(chunk_states)
             traj = []
             for _ in range(n_steps):
-                obs = self.plane_obs(ps.s, ps.aux)
-                actions = policy_fn(policy_params, obs)
-                ps, ts = self._step_planes(ps, actions)
-                traj.append(traj_select(ts) if traj_select else ts)
+                if remat_steps:
+                    ps, out = checkpoint(step, ps, use_reentrant=False)
+                else:
+                    ps, out = step(ps)
+                traj.append(out)
             stacked = tree_map(lambda *xs: torch.stack(xs), *traj)
             return self._from_planes(ps), stacked
 

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-At first use, ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) into one
-shared library with a plain C interface,
+At first use, each ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by
+its own ``nvcc``, all started together, and the objects are linked into
+one shared library with a plain C interface,
 ``<checkout>/build/kernels/libparallax_kernels.so``.  A stamp beside it
-holds the hash of the sources and flags; a changed hash rebuilds.  The
-library is loaded with ``ctypes``; every pointer and the CUDA stream are
-passed as ``c_void_p``.  Nothing here runs at import time.
+holds the hash of the sources (``*.cu`` and the ``*.cuh`` they include)
+and flags; a changed hash rebuilds.  The library is loaded with
+``ctypes``; every pointer and the CUDA stream are passed as ``c_void_p``.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ LIB_NAME = "libparallax_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -59,27 +61,39 @@ def _digest() -> str:
     return h.hexdigest()
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with nvcc's output if any failed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernels unless the stamped build matches the sources."""
     global build_seconds
-    sources = _sources()
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = _digest()
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = {str(src): str(BUILD_DIR / f"{src.stem}.{tag}.o") for src in _sources()}
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({done.returncode}): {' '.join(cmd)}\n"
-            f"{done.stdout}{done.stderr}"
-        )
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in objs.items()])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs.values()]])
+        os.replace(tmp, lib)
+    finally:
+        for f in (*objs.values(), tmp):
+            Path(f).unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    os.replace(tmp, lib)
     stamp.write_text(digest)
     return lib
 
@@ -100,8 +114,21 @@ _SIGNATURES = {
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
         + [_I, _P]  # has_max_bias, stream
     ),
+    "contact_solve_bwd": (
+        [_P] * 5  # pen_x, pen_y, pt_x, pt_y, active
+        + [_P] * 6  # px, py, vx, vy, angle, omega
+        + [_P] * 6  # cotangents of the six outputs
+        + [_P] * 6  # cotangents of the six body planes (out)
+        + [_P] * 4  # cotangents of pen_x, pen_y, pt_x, pt_y (out)
+        + [_P] * 9  # the operands, as for contact_solve_fwd
+        + [_P]  # scratch
+        + [_I] * 6  # B, C, n, J, iterations, position_iterations
+        + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
+        + [_I, _P]  # has_max_bias, stream
+    ),
     "contact_solver_num_fields": [],
     "contact_solver_max_bodies": [],
+    "contact_solver_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations
 }
 
 

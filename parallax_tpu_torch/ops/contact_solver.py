@@ -1,14 +1,21 @@
-"""The contact solve with fused joints: CUDA kernel, wrapper, plain version.
+"""The contact solve with fused joints: CUDA kernels, wrapper, plain versions.
 
 ``csrc/contact_solver.cu`` replaces ``parallax_tpu/ops/pallas_solver.py``'s
 ``_solver_kernel``: one launch runs every velocity and position iteration
 of ``engine.batched.solve_contacts_bm`` and then the spring-damper joints
 of ``engine.batched.apply_joints_bm``, one CUDA thread per world.
+``csrc/contact_solver_bwd.cu`` replaces its reverse pass,
+``_solver_bwd_kernel``: it recomputes the forward from the primal inputs
+and returns the cotangents of the body planes and of the contact planes.
 
 :func:`solve_contacts` chooses by the tensors' device and nothing else: on
-CPU tensors it runs :func:`solve_contacts_plain`; on CUDA tensors it
-launches the kernel, and a failing build or launch raises.  ``launches``
-counts the kernel's launches; only the launch itself adds to it.
+CPU tensors it runs :func:`solve_contacts_plain`, and autograd of its
+plain ops is the backward; on CUDA tensors it launches the forward kernel,
+and under autograd (grad enabled and an input that requires it) it does so
+through :class:`_ContactSolve`, whose backward launches the reverse-pass
+kernel.  A failing build or launch raises; neither kernel falls back to
+the other or to a plain version.  ``launches`` and ``bwd_launches`` count
+the two kernels' launches; only the launches themselves add to them.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from parallax_tpu_torch.dynamics.impulses import ContactSolverConfig
 
 # kernel launches in this process (see module docstring)
 launches = 0
+bwd_launches = 0
+
+_CON_PLANES = ("pen_x", "pen_y", "pt_x", "pt_y")
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +193,27 @@ def solve_contacts_plain(
     return apply_joints_bm(world, s)
 
 
+def solve_contacts_bwd_plain(
+    world, s, con, grads, iterations: int, position_iterations: int, dt: float,
+    config: ContactSolverConfig,
+):
+    """The reverse-pass kernel's plain version: the VJP of
+    :func:`solve_contacts_plain` at ``(s, con)`` for the output cotangents
+    ``grads`` (an ``_SoA``), by autograd of the plain ops.  Returns
+    ``(ds, dpen_x, dpen_y, dpt_x, dpt_y)``, ``ds`` an ``_SoA``."""
+    with torch.enable_grad():
+        s_in = type(s)(*(x.detach().requires_grad_(True) for x in s))
+        planes = {k: getattr(con, k).detach().requires_grad_(True) for k in _CON_PLANES}
+        out = solve_contacts_plain(
+            world, s_in, con._replace(**planes), iterations, position_iterations,
+            dt, config,
+        )
+        inputs = (*s_in, *planes.values())
+        got = torch.autograd.grad(tuple(out), inputs, tuple(grads), allow_unused=True)
+    got = [torch.zeros_like(x) if g is None else g for g, x in zip(got, inputs)]
+    return (type(s)(*got[:6]), *got[6:])
+
+
 def solve_contacts(
     world, s, con, iterations: int, position_iterations: int, dt: float,
     config: ContactSolverConfig,
@@ -196,7 +227,44 @@ def solve_contacts(
         )
     if device.type != "cuda":
         raise ValueError(f"contact solver: no kernel for device {device}")
+    planes = tuple(getattr(con, k) for k in _CON_PLANES)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (*s, *planes)):
+        out = _ContactSolve.apply(
+            (world, iterations, position_iterations, dt, config),
+            *planes, con.active, *s,
+        )
+        return type(s)(*out)
     return _solve_cuda(world, s, con, iterations, position_iterations, dt, config)
+
+
+class _ContactSolve(torch.autograd.Function):
+    """The CUDA solve under autograd: the forward kernel, and the reverse-pass
+    kernel as its backward.  It saves the primal inputs only (the TPU
+    path's residual policy); the backward recomputes the rest.  ``active``
+    takes no cotangent."""
+
+    @staticmethod
+    def forward(ctx, statics, pen_x, pen_y, pt_x, pt_y, active, *body):
+        from parallax_tpu_torch.engine.batched import ContactsBM, _SoA
+
+        world, iterations, position_iterations, dt, config = statics
+        s = _SoA(*body)
+        con = ContactsBM(pen_x, pen_y, pt_x, pt_y, active, None)
+        out = _solve_cuda(world, s, con, iterations, position_iterations, dt, config)
+        ctx.statics = statics
+        ctx.save_for_backward(pen_x, pen_y, pt_x, pt_y, active, *body)
+        return tuple(out)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        from parallax_tpu_torch.engine.batched import ContactsBM, _SoA
+
+        pen_x, pen_y, pt_x, pt_y, active, *body = ctx.saved_tensors
+        s = _SoA(*body)
+        con = ContactsBM(pen_x, pen_y, pt_x, pt_y, active, None)
+        ds, *dcon = _solve_bwd_cuda(ctx.statics[0], s, con, _SoA(*grads), *ctx.statics[1:])
+        return (None, *dcon, None, *ds)
 
 
 def _check(name, x, shape, dtype, device):
@@ -210,8 +278,8 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _solve_cuda(world, s, con, iterations, position_iterations, dt, config):
-    global launches
+def _launch_operands(world, s, con, config):
+    """Check the planes, and return ``(lib, ops, C, n, B, stream)``."""
     from parallax_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -225,27 +293,24 @@ def _solve_cuda(world, s, con, iterations, position_iterations, dt, config):
         )
     for name, x in zip(s._fields, s):
         _check(name, x, (n, B), torch.float32, device)
-    for name in ("pen_x", "pen_y", "pt_x", "pt_y"):
+    for name in _CON_PLANES:
         _check(name, getattr(con, name), (C, B), torch.float32, device)
     _check("active", con.active, (C, B), torch.bool, device)
     ops = solver_operands(world, config)
     for name, x in zip(ops._fields, ops):
         if x.device != device:
             raise ValueError(f"operand {name}: on {x.device}, expected {device}")
+    return lib, ops, C, n, B, torch.cuda.current_stream(device).cuda_stream
 
-    outs = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
-    scratch = torch.empty(
-        (lib.contact_solver_num_fields(), C, B), dtype=torch.float32, device=device
-    )
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _tail(world, iterations, position_iterations, dt, config, B, C, n, stream):
+    """The scalar arguments both kernels end with."""
     max_bias = config.baumgarte_max_bias
-    stream = torch.cuda.current_stream(device).cuda_stream
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
-    err = lib.contact_solve_fwd(
-        *(ptr(getattr(con, k)) for k in ("pen_x", "pen_y", "pt_x", "pt_y", "active")),
-        *(ptr(x) for x in s),
-        *(ptr(x) for x in outs),
-        *(ptr(x) for x in ops),
-        ptr(scratch),
+    return (
         B, C, n, world.joints.n_joints,
         iterations, position_iterations,
         float(dt), float(config.baumgarte), float(config.baumgarte_slop),
@@ -254,9 +319,69 @@ def _solve_cuda(world, s, con, iterations, position_iterations, dt, config):
         0 if max_bias is None else 1,
         ctypes.c_void_p(stream),
     )
+
+
+def _solve_cuda(world, s, con, iterations, position_iterations, dt, config):
+    global launches
+    lib, ops, C, n, B, stream = _launch_operands(world, s, con, config)
+    device = s.px.device
+    outs = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
+    scratch = torch.empty(
+        (lib.contact_solver_num_fields(), C, B), dtype=torch.float32, device=device
+    )
+    err = lib.contact_solve_fwd(
+        *(_ptr(getattr(con, k)) for k in (*_CON_PLANES, "active")),
+        *(_ptr(x) for x in s),
+        *(_ptr(x) for x in outs),
+        *(_ptr(x) for x in ops),
+        _ptr(scratch),
+        *_tail(world, iterations, position_iterations, dt, config, B, C, n, stream),
+    )
     if err != 0:
         raise RuntimeError(f"contact_solve_fwd launch failed: CUDA error {err}")
     launches += 1
     return s._replace(
         px=outs[0], py=outs[1], vx=outs[2], vy=outs[3], angle=outs[4], omega=outs[5]
     )
+
+
+def solve_contacts_bwd(world, s, con, grads, iterations, position_iterations, dt, config):
+    """The reverse-pass kernel on CUDA tensors, the plain version on CPU
+    tensors: the VJP of :func:`solve_contacts` at ``(s, con)`` for the
+    output cotangents ``grads``.  Returns ``(ds, dpen_x, dpen_y, dpt_x,
+    dpt_y)``."""
+    device = s.px.device
+    if device.type == "cpu":
+        return solve_contacts_bwd_plain(
+            world, s, con, grads, iterations, position_iterations, dt, config
+        )
+    if device.type != "cuda":
+        raise ValueError(f"contact solver: no kernel for device {device}")
+    return _solve_bwd_cuda(world, s, con, grads, iterations, position_iterations, dt, config)
+
+
+def _solve_bwd_cuda(world, s, con, grads, iterations, position_iterations, dt, config):
+    global bwd_launches
+    lib, ops, C, n, B, stream = _launch_operands(world, s, con, config)
+    device = s.px.device
+    grads = [g.contiguous() for g in grads]
+    for name, g in zip(s._fields, grads):
+        _check(f"cotangent {name}", g, (n, B), torch.float32, device)
+    ds = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
+    dcon = [torch.empty((C, B), dtype=torch.float32, device=device) for _ in range(4)]
+    rows = lib.contact_solver_bwd_scratch_rows(C, n, iterations, position_iterations)
+    scratch = torch.empty((rows, B), dtype=torch.float32, device=device)
+    err = lib.contact_solve_bwd(
+        *(_ptr(getattr(con, k)) for k in (*_CON_PLANES, "active")),
+        *(_ptr(x) for x in s),
+        *(_ptr(g) for g in grads),
+        *(_ptr(x) for x in ds),
+        *(_ptr(x) for x in dcon),
+        *(_ptr(x) for x in ops),
+        _ptr(scratch),
+        *_tail(world, iterations, position_iterations, dt, config, B, C, n, stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"contact_solve_bwd launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return (type(s)(*ds), *dcon)

@@ -3,7 +3,9 @@
 The rollout has no learned weights: these functions are how a state taken
 elsewhere (for example a JAX state read with ``np.asarray``) enters the
 port, and how the port's state leaves it.  Keys are uint32 in numpy and
-int64 holding uint32 words in the port (see ``utils/prng.py``).
+int64 holding uint32 words in the port (see ``utils/prng.py``).  Like
+every entry point of the port they put their tensors on the GPU unless
+the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -13,19 +15,21 @@ import torch
 
 from parallax_tpu_torch.dynamics.bodies import BodyState
 from parallax_tpu_torch.engine.batched import ContactsBM, _SoA
+from parallax_tpu_torch.utils.device import resolve as resolve_device
 
 
 def _f32(x, device):
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
-def lander_state_from_numpy(d: dict, device="cpu"):
+def lander_state_from_numpy(d: dict, device="cuda"):
     """``{field: array}`` -> ``LanderState``.  The fields are
     ``bodies.pos``, ``bodies.vel``, ``bodies.angle``, ``bodies.omega``,
     ``terrain``, ``t``, ``key`` (uint32), ``prev_shaping`` and
     ``leg_contacts``."""
     from parallax_tpu_torch.envs.lunar_lander import LanderState
 
+    device = resolve_device(device)
     key = np.asarray(d["key"])
     if key.dtype != np.uint32:
         raise ValueError(f"key must be uint32, got {key.dtype}")
@@ -65,17 +69,19 @@ def lander_state_to_numpy(state) -> dict:
     }
 
 
-def soa_from_numpy(planes, device="cpu") -> _SoA:
+def soa_from_numpy(planes, device="cuda") -> _SoA:
     """Six ``[n, B]`` arrays (a sequence or anything with the ``_SoA`` field
     names as attributes) -> ``_SoA``."""
+    device = resolve_device(device)
     if hasattr(planes, "px"):
         planes = [getattr(planes, f) for f in _SoA._fields]
     return _SoA(*(_f32(x, device) for x in planes))
 
 
-def contacts_from_numpy(con, device="cpu") -> ContactsBM:
+def contacts_from_numpy(con, device="cuda") -> ContactsBM:
     """Six ``[C, B]`` arrays (``ContactsBM`` field order or attributes) ->
     ``ContactsBM``; ``active`` becomes bool."""
+    device = resolve_device(device)
     if hasattr(con, "pen_x"):
         con = [getattr(con, f) for f in ContactsBM._fields]
     pen_x, pen_y, pt_x, pt_y, active, weight = con

@@ -9,6 +9,7 @@ sums in another order), not bit for bit.
 """
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -56,7 +57,7 @@ def contact_scenario(env, B):
 
 @pytest.fixture(scope="module")
 def scenario():
-    env = LunarLander()
+    env = LunarLander(device="cpu")
     s, con, override = contact_scenario(env, B)
     jenv = JaxLander()
     s_j = jb._SoA(*(jnp.asarray(x) for x in convert.to_numpy(s)))
@@ -166,9 +167,51 @@ def test_wrapper_runs_plain_version_on_cpu_without_launching(scenario):
 
 def test_planes_and_contacts_cross_from_jax_through_numpy(scenario):
     _, _, s, con, _, s_j, con_j = scenario
-    for a, b in zip(convert.soa_from_numpy(s_j), s):
+    for a, b in zip(convert.soa_from_numpy(s_j, device="cpu"), s):
         assert torch.equal(a, b)
-    back = convert.contacts_from_numpy(con_j)
+    back = convert.contacts_from_numpy(con_j, device="cpu")
     assert back.active.dtype == torch.bool
     for a, b in zip(back, con):
         assert torch.equal(a, b)
+
+
+FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+open(args[args.index("-o") + 1], "w").write("built")
+with open({log!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+sys.exit(1 if {fail!r} and any(a.endswith({fail!r}) for a in args) else 0)
+"""
+
+
+@pytest.mark.parametrize("fail", ["", "contact_solver_bwd.cu"])
+def test_kernel_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
+    """``_build.build`` with a stand-in for nvcc: one compile per ``csrc``
+    source, then one link into the library and its stamp; when a compile
+    fails it raises with the command and leaves no object, library or
+    stamp behind."""
+    from parallax_tpu_torch.ops import _build
+
+    log = tmp_path / "calls.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, log=str(log), fail=fail))
+    nvcc.chmod(0o755)
+    out = tmp_path / "kernels"
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    sources = _build._sources()
+    assert {p.name for p in sources} >= {"contact_solver.cu", "contact_solver_bwd.cu"}
+    if fail:
+        with pytest.raises(RuntimeError, match="nvcc failed.*contact_solver_bwd.cu"):
+            _build.build()
+        assert sorted(p.name for p in out.iterdir()) == []
+        return
+    lib = _build.build()
+    calls = log.read_text().splitlines()
+    assert len(calls) == len(sources) + 1
+    assert sorted(c.split()[-1] for c in calls[:-1]) == sorted(map(str, sources))
+    assert all(" -c " in c and "--fmad=false" in c for c in calls[:-1])
+    assert " -shared " in calls[-1]
+    assert sorted(p.name for p in out.iterdir()) == [lib.name, lib.name + ".sha256"]
+    assert _build.build() == lib and len(log.read_text().splitlines()) == len(calls)

@@ -15,8 +15,10 @@ import torch
 from parallax_tpu_torch.engine import batched as tb
 from parallax_tpu_torch.envs.lunar_lander import LunarLander
 from parallax_tpu_torch.ops import contact_solver
+from parallax_tpu_torch.parallel import rollout
 
 ATOL = 1e-5  # kernel vs plain version: float32 rounding and sum order
+RTOL = 2e-4  # the reverse pass: the JAX package's bar for its Pallas backward
 
 
 @pytest.fixture(scope="module")
@@ -35,11 +37,9 @@ def _zero(_, obs):
     return torch.zeros((obs.shape[0], 2), device=obs.device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("position_iterations", [2, 0])
-def test_kernel_matches_plain_version_on_card(cuda_env, position_iterations):
-    env = cuda_env
-    st = env.reset_fn_batch(_keys(1024, 0))
+def _contact_scenario(env, B):
+    """The lander lowered by 6.2 with vy -= 0.6, after 40 zero-action steps."""
+    st = env.reset_fn_batch(_keys(B, 0))
     b = st.bodies
     st = st._replace(bodies=b._replace(
         pos=b.pos - torch.tensor([0.0, 6.2], device="cuda"),
@@ -51,6 +51,14 @@ def test_kernel_matches_plain_version_on_card(cuda_env, position_iterations):
     s = tb._to_soa(st.bodies)
     con = tb.collide_batched(env.world, s, override)
     assert int(con.active.sum()) > 100
+    return st, s, con
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("position_iterations", [2, 0])
+def test_kernel_matches_plain_version_on_card(cuda_env, position_iterations):
+    env = cuda_env
+    _, s, con = _contact_scenario(env, 1024)
     cfg = env.world.config.contact
     before = contact_solver.launches
     got = contact_solver.solve_contacts(env.world, s, con, 3, position_iterations, 0.01, cfg)
@@ -97,3 +105,81 @@ def test_wrapper_refuses_bad_inputs_on_card(cuda_env):
         contact_solver.solve_contacts(
             env.world, s, con._replace(pen_x=con.pen_x.cpu()), 3, 2, 0.01, cfg
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("position_iterations", [2, 0])
+def test_bwd_kernel_matches_plain_vjp_on_card(cuda_env, position_iterations):
+    """The reverse-pass kernel against autograd of the plain version.  With
+    the lander's position passes every cotangent agrees elementwise (rtol
+    2e-4, atol 1e-5).  Without them the velocity solve carries the whole
+    Baumgarte bias, and some cotangents are sums of terms thousands of
+    times larger than the result, so float32 keeps none of their digits in
+    either version.  There both are held against the plain VJP in float64:
+    the kernel may be no further from it than twice the plain float32
+    version's distance, plus atol."""
+    env = cuda_env
+    _, s, con = _contact_scenario(env, 1024)
+    cfg = env.world.config.contact
+    rng = np.random.default_rng(5)
+    cot = tb._SoA(*(torch.from_numpy(rng.standard_normal(s.px.shape).astype(np.float32)).cuda()
+                    for _ in range(6)))
+    before = contact_solver.bwd_launches
+    got = contact_solver.solve_contacts_bwd(env.world, s, con, cot, 3, position_iterations,
+                                            0.01, cfg)
+    assert contact_solver.bwd_launches == before + 1
+    want = contact_solver.solve_contacts_bwd_plain(env.world, s, con, cot, 3,
+                                                   position_iterations, 0.01, cfg)
+    torch.cuda.synchronize()
+    if not position_iterations:
+        exact = contact_solver.solve_contacts_bwd_plain(
+            env.world, tb._SoA(*(x.double() for x in s)),
+            con._replace(**{k: getattr(con, k).double() for k in ("pen_x", "pen_y", "pt_x", "pt_y")}),
+            tb._SoA(*(x.double() for x in cot)), 3, 0, 0.01, cfg,
+        )
+    for i, (x, y) in enumerate(zip((*got[0], *got[1:]), (*want[0], *want[1:]))):
+        assert torch.isfinite(x).all()
+        if position_iterations:
+            torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+        else:
+            z = (*exact[0], *exact[1:])[i]
+            assert (x - z).abs().max() <= 2 * (y - z).abs().max() + ATOL
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_runs_both_kernels(cuda_env):
+    """A train step at small B: the solve carries a grad_fn on the card, the
+    backward launches the reverse-pass kernel once a step, and the policy
+    gradients are finite and nonzero.  Without autograd nothing of the
+    backward is recorded."""
+    env = cuda_env
+    st, _, _ = _contact_scenario(env, 256)
+    rng = np.random.default_rng(0)
+    params = {
+        "w1": torch.tensor(rng.standard_normal((9, 32)) * 0.3, dtype=torch.float32),
+        "b1": torch.zeros(32),
+        "w2": torch.tensor(rng.standard_normal((32, 2)) * 0.1, dtype=torch.float32),
+        "b2": torch.zeros(2),
+    }
+    params = {k: v.cuda().requires_grad_(True) for k, v in params.items()}
+
+    def policy(p, obs):
+        return torch.tanh(torch.tanh(obs @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"])
+
+    with torch.no_grad():
+        before = contact_solver.bwd_launches
+        _, traj = env.rollout_batch(st, policy, 2, params)
+        assert traj.reward.grad_fn is None and contact_solver.bwd_launches == before
+
+    h = 6
+    loss_fn = rollout.make_loss_fn(env, policy, h, checkpoint_segments=2)
+    f0, b0 = contact_solver.launches, contact_solver.bwd_launches
+    loss, _ = loss_fn(params, st)
+    assert loss.grad_fn is not None
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    assert contact_solver.launches - f0 == 2 * h  # forward + checkpoint recompute
+    assert contact_solver.bwd_launches - b0 == h
+    assert torch.isfinite(loss)
+    for g in grads:
+        assert torch.isfinite(g).all() and g.abs().max() > 0

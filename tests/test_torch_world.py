@@ -20,7 +20,7 @@ torch.set_num_threads(2)
 
 @pytest.fixture(scope="module")
 def worlds():
-    return JaxLander().world, LunarLander().world
+    return JaxLander().world, LunarLander(device="cpu").world
 
 
 @pytest.mark.parametrize("point", ["groups", "body_a", "body_b", "partner", "params"])
@@ -86,10 +86,33 @@ def test_unported_kernels_and_modes_raise():
         BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf,
                 inertia=np.inf, position=(0.0, -0.5)),
     ]
-    world, st = World.build(bodies, WorldConfig())
+    world, st = World.build(bodies, WorldConfig(), device="cpu")
     s = _to_soa(type(st)(*(x[None] for x in st)))
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         physics_core(world, s)
-    world_gs, _ = World.build(bodies, WorldConfig(solver_mode="gauss_seidel"))
+    world_gs, _ = World.build(bodies, WorldConfig(solver_mode="gauss_seidel"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         physics_core(world_gs, s)
+
+
+@pytest.mark.parametrize("entry", ["LunarLander", "World.build", "convert"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """The entry points run on the GPU unless the caller asks for the CPU:
+    without a CUDA device their default raises and never falls back."""
+    import inspect
+
+    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
+    from parallax_tpu_torch.geometry.shapes import polygon
+    from parallax_tpu_torch.utils import convert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    box = [BodyDef(shapes=[polygon([(0, 0), (1, 0), (1, 1), (0, 1)])])]
+    make, fn = {
+        "LunarLander": (LunarLander, LunarLander.__init__),
+        "World.build": (lambda: World.build(box, WorldConfig()), World.build),
+        "convert": (lambda: convert.soa_from_numpy([np.zeros((1, 1))] * 6),
+                    convert.soa_from_numpy),
+    }[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
