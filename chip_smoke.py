@@ -12,6 +12,9 @@ the card agrees with the same run on the CPU:
 
 * the rollout: ``LunarLander()`` (the card), ``reset_fn_batch`` +
   ``rollout_batch`` at B=8192; it runs the contact-solve kernel;
+* the fused rollout: ``LunarLander(LanderConfig(broadphase=False,
+  use_cuda_fused=True))``, the same entry points at B=8192; it runs the
+  fused-step kernel and no other;
 * the train step: ``parallel.rollout.make_train_step`` at B=8192, horizon
   100, 4 checkpoint segments, the 9-32-2 tanh policy and Adam at lr 3e-3
   (the configuration of ``bench.py --train``); it runs the contact-solve
@@ -42,7 +45,7 @@ RTOL = 2e-4  # reverse pass vs plain VJP: the JAX package's bar for its backward
 SMALL_B, SMALL_STEPS = 1024, 60
 CPU_ATOL = 1e-3  # card vs CPU rollout after 60 steps (rounding grows with steps)
 CPU_DONE_SHARE = 0.99
-HORIZON, SEGMENTS, TRAIN_CALLS = 100, 4, 3
+HORIZON, SEGMENTS, TRAIN_CALLS = 100, 4, 2
 SMALL_H = 12
 PROFILE_H = 8  # the profiled train step: short, so its trace stays small
 # card vs CPU train step: the loss is a mean of 12 rewards that agree to
@@ -124,6 +127,40 @@ def solver_bound_ms(n_active, B, C, n, J, iterations, position_iterations, bwd):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def fused_bound_ms(world, override_parts, n_active, B):
+    """The least time of one fused step on this card: the larger of its
+    bytes (six body planes and the terrain rows the pairs read, once; six
+    body planes and the active flags written once) over the HBM rate and
+    its float32 operations over the float32 rate.  Operations are counted
+    from the kernel's arithmetic: every pair runs its SAT and clip whether
+    or not it touches (edge axes 9 each; per axis the projections of both
+    polygons, 3 a vertex and 2 a min/max, then 4 to compare; 4 a vertex
+    for the reference edges; about 85 for the clip and the lanes), every
+    rotated vertex 8, every body 8 to integrate and about 40 for its
+    cosine and sine, and the solve and joints as ``solver_bound_ms``
+    counts them for the run's active lanes."""
+    from parallax_tpu_torch.ops.fused_step import fused_operands
+
+    ops_ = fused_operands(world)
+    parts = ops_.part_i.tolist()
+    per_world = 0
+    for _, _, va, vb, _, _ in ops_.pair_i.tolist():
+        A = va + vb
+        per_world += 9 * A + A * (3 * A + 2 * (A - 2) + 4) + 4 * A + 85
+    per_world += sum(8 * nv for p, (_, _, nv) in enumerate(parts) if p not in override_parts)
+    n, C, J = world.n_bodies, world.table.n_contacts, world.joints.n_joints
+    per_world += 48 * n
+    cfg = world.config
+    ops = per_world * B + n_active * (
+        80 + 90 * cfg.solver_iterations + 38 * cfg.position_iterations
+    ) + 60 * J * B
+    terrain_rows = sum(parts[p][2] for p in override_parts)
+    nbytes = (12 * n + 2 * terrain_rows) * B * 4 + C * B
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
 def zero_policy(_, obs):
     return torch.zeros((obs.shape[0], 2), device=obs.device)
 
@@ -157,7 +194,8 @@ def profile_train(loss_fn, params, states, gpu):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host events of 46k launches take long to collect
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         loss, _ = loss_fn(params, states)
         torch.cuda.synchronize()
@@ -187,6 +225,11 @@ def profile_train(loss_fn, params, states, gpu):
 
 
 def main():
+    t_start = time.perf_counter()
+
+    def lap(label):
+        print(f"[clock] {label} at {time.perf_counter() - t_start:.1f} s")
+
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run only on an NVIDIA GPU")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -199,8 +242,8 @@ def main():
         "parallax_tpu_torch must come from this checkout",
     )
     from parallax_tpu_torch.engine.batched import _to_soa, collide_batched
-    from parallax_tpu_torch.envs.lunar_lander import LunarLander
-    from parallax_tpu_torch.ops import _build, contact_solver
+    from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
+    from parallax_tpu_torch.ops import _build, contact_solver, fused_step
     from parallax_tpu_torch.parallel import rollout
     from parallax_tpu_torch.utils import prng
     from parallax_tpu_torch.utils.pytree import tree_map
@@ -218,7 +261,11 @@ def main():
     _build.load()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s)")
+    for src, lines in (_build.ptxas_report or {}).items():
+        for line in lines:
+            print(f"[ptxas] {src}: {line[:160]}")
 
+    lap("phase 3 starts")
     # -- phase 3: kernels against their plain versions -------------------------
     env = LunarLander()
     cfg = env.world.config
@@ -294,6 +341,36 @@ def main():
     print(f"[bound] at B={B}, {n_active} active lanes: forward {fwd_bound:.5f} ms "
           f"({fwd_by}), reverse pass {bwd_bound:.5f} ms ({bwd_by})")
 
+    env_f = LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True))
+    got_s, got_c = fused_step.physics_core_fused(env_f.world, s, override)
+    want_s, want_c = fused_step.fused_step_plain(env_f.world, s, override)
+    torch.cuda.synchronize()
+    f_active = int(want_c.active.sum())
+    check(f_active > 100, f"fused scenario has {f_active} active lanes, need > 100")
+    check(torch.equal(got_c.active, want_c.active),
+          f"fused kernel vs plain: {int((got_c.active != want_c.active).sum())} active flags differ")
+    fused_err = 0.0
+    for f, a, b in zip(got_s._fields, got_s, want_s):
+        err = (a - b).abs().max().item()
+        check(np.isfinite(err) and err <= ATOL, f"fused kernel vs plain: {f} differs by {err}")
+        fused_err = max(fused_err, err)
+    print(f"[kernel] fused_step_fwd vs plain at B={B}: {f_active} active lanes, flags "
+          f"identical, max |diff| {fused_err:.3e} <= {ATOL}")
+
+    def fused_call():
+        fused_step.physics_core_fused(env_f.world, s, override)
+
+    def fused_plain_call():
+        fused_step.fused_step_plain(env_f.world, s, override)
+
+    fused_ms, fused_plain_ms, t = turns(fused_call, fused_plain_call, 20)
+    print(f"[time] fused step per call at B={B}: kernel {fused_ms:.4f} ms, plain torch "
+          f"{fused_plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+    f_bound, f_by, f_bytes, f_ops = fused_bound_ms(env_f.world, sorted(override), f_active, B)
+    print(f"[bound] fused step at B={B}, {f_active} active lanes: {f_bound:.5f} ms ({f_by}; "
+          f"{f_bytes / 1e6:.2f} MB, {f_ops / 1e6:.1f} M float32 operations)")
+
+    lap("phase 4 starts")
     # -- phase 4: the rollout path ---------------------------------------------------
     params = policy_params(dev)
     states = env.reset_fn_batch(keys_for(B, 1, dev))
@@ -314,11 +391,11 @@ def main():
           f"obs/reward finite, {main_s:.2f} s wall")
 
     st = lowered(env.reset_fn_batch(keys_for(B, 2, dev)), dev)
-    _, traj2 = env.rollout_batch(st, zero_policy, 200)
+    _, traj2 = env.rollout_batch(st, zero_policy, 100)
     legs = int(traj2.info["leg_contacts"].sum())
     terms = int(traj2.terminated.sum())
     check(legs > 0 and terms > 0, f"lowered rollout: {legs} leg contacts, {terms} terminations")
-    print(f"[main] lowered start B={B} x 200 steps: {legs} leg-contact flags, "
+    print(f"[main] lowered start B={B} x 100 steps: {legs} leg-contact flags, "
           f"{terms} terminations")
 
     env_cpu = LunarLander(device="cpu")
@@ -338,17 +415,61 @@ def main():
           f"card vs CPU rollout differ beyond {CPU_ATOL}")
     check(done_share >= CPU_DONE_SHARE, f"done sequences agree in {done_share} of worlds")
 
-    # -- phase 5: times of the rollout --------------------------------------------------
-    steps = 200
-    states = env.reset_fn_batch(keys_for(B, 5, dev))
-    env.rollout_batch(states, policy, 20, params)  # warm
+    # the fused path: a lowered start, so legs and hull touch down
+    st = lowered(env_f.reset_fn_batch(keys_for(B, 2, dev)), dev)
     torch.cuda.synchronize()
+    fused_step.launches = 0
+    contact_solver.launches = 0
     t0 = time.perf_counter()
-    env.rollout_batch(states, policy, steps, params)
+    _, traj_f = env_f.rollout_batch(st, policy, STEPS, params)
     torch.cuda.synchronize()
-    rate = B * steps / (time.perf_counter() - t0)
-    print(f"[time] LunarLander rollout B={B}: {rate:.1f} env-steps/s "
-          f"({steps} chained steps, one sync) on {gpu}")
+    fused_s = time.perf_counter() - t0
+    fused_launches, f_solver = fused_step.launches, contact_solver.launches
+    check(fused_launches == STEPS, f"fused kernel launched {fused_launches} times in {STEPS} steps")
+    check(f_solver == 0, f"the fused rollout launched the solver kernel {f_solver} times")
+    check(torch.isfinite(traj_f.obs).all().item(), "fused rollout: non-finite obs")
+    check(torch.isfinite(traj_f.reward).all().item(), "fused rollout: non-finite reward")
+    f_legs = int(traj_f.info["leg_contacts"].sum())
+    f_terms = int(traj_f.terminated.sum())
+    check(f_legs > 0 and f_terms > 0, f"fused rollout: {f_legs} leg contacts, {f_terms} terminations")
+    print(f"[main] fused rollout_batch B={B} x {STEPS} steps (lowered start): fused launches "
+          f"{fused_launches}, solver launches {f_solver}, obs/reward finite, {f_legs} "
+          f"leg-contact flags, {f_terms} terminations, {fused_s:.2f} s wall")
+
+    env_f_cpu = LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True), device="cpu")
+    small = {}
+    for d, e in (("cuda", env_f), ("cpu", env_f_cpu)):
+        st = lowered(e.reset_fn_batch(keys_for(SMALL_B, 4, d)), d)
+        _, tr = e.rollout_batch(st, policy, SMALL_STEPS, policy_params(d))
+        small[d] = tr
+    g, c = small["cuda"], small["cpu"]
+    obs_err = (g.obs.cpu() - c.obs).abs().max().item()
+    rew_err = (g.reward.cpu() - c.reward).abs().max().item()
+    done_share = (g.done.cpu() == c.done).all(0).double().mean().item()
+    print(f"[check] fused B={SMALL_B} x {SMALL_STEPS} steps, card vs CPU: max |obs diff| "
+          f"{obs_err:.3e}, max |reward diff| {rew_err:.3e}, worlds with equal done "
+          f"sequences {done_share:.4f}")
+    check(obs_err <= CPU_ATOL and rew_err <= CPU_ATOL,
+          f"fused: card vs CPU rollout differ beyond {CPU_ATOL}")
+    check(done_share >= CPU_DONE_SHARE, f"fused: done sequences agree in {done_share} of worlds")
+
+    lap("phase 5 starts")
+    # -- phase 5: times of the rollout --------------------------------------------------
+    steps = 50
+    states = env.reset_fn_batch(keys_for(B, 5, dev))
+    rates = {"split": [], "fused": []}
+    for label in ("split", "fused", "fused", "split"):
+        e = env if label == "split" else env_f
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.rollout_batch(states, policy, steps, params)
+        torch.cuda.synchronize()
+        rates[label].append(B * steps / (time.perf_counter() - t0))
+    rate, fused_rate = max(rates["split"]), max(rates["fused"])
+    print(f"[time] LunarLander rollout B={B}: split {rate:.1f}, fused {fused_rate:.1f} "
+          f"env-steps/s (best of 2 turns each of {steps} chained steps, one sync; turns "
+          f"split {[round(x, 1) for x in rates['split']]}, fused "
+          f"{[round(x, 1) for x in rates['fused']]}) on {gpu}")
 
     ps = env._to_planes(states)
     acts = torch.zeros((B, 2), device=dev)
@@ -359,11 +480,14 @@ def main():
         "collide_batched": lambda: collide_batched(env.world, s1, ov),
         "plane_fresh (threefry terrain)": lambda: env.plane_fresh(prng.split(ps.key)[:, 0]),
         "solve+joints kernel": kernel_call,
+        "fused step (one step of the fused world)": lambda: env_f._step_planes(ps, acts),
+        "fused step kernel": fused_call,
     }
     for label, fn in layers.items():
         cuda_ms(fn, 3)
         print(f"[time] {label}: {cuda_ms(fn, 20):.4f} ms per call at B={B} on {gpu}")
 
+    lap("phase 6 starts")
     # -- phase 6: the train path, card against CPU ----------------------------------
     cpu_st = lowered(env_cpu.reset_fn_batch(keys_for(SMALL_B, 6, "cpu")), "cpu")
     cpu_st, _ = env_cpu.rollout_batch(cpu_st, zero_policy, 40)
@@ -383,12 +507,14 @@ def main():
     check(grad_rel <= GRAD_RTOL, f"policy grads: card vs CPU rel diff {grad_rel}")
     check(all(g.norm().item() > 0 for g in grads_g), "a policy gradient is zero")
 
+    lap("phase 7 starts")
     # -- phase 7: the train path at full width ----------------------------------------
     params = mlp_params(dev)
     step = rollout.make_train_step(env, mlp, rollout.adam(params, 3e-3), HORIZON,
                                    checkpoint_segments=SEGMENTS)
     states = env.reset_fn_batch(keys_for(B, 7, dev))
     params, states, m = step(params, states)  # warm-up
+    lap("train warm-up done")
     torch.cuda.synchronize()
     check(np.isfinite(m["loss"].item()), "warm-up train step: non-finite loss")
     torch.cuda.reset_peak_memory_stats()
@@ -420,7 +546,9 @@ def main():
 
     # where a train step's time goes: the forward under autograd, then the
     # backward (each segment's recompute and its reverse passes)
+    lap("train steps done")
     profile_train(rollout.make_loss_fn(env, mlp, PROFILE_H, 2), params, states, gpu)
+    lap("done")
     print(json.dumps({"kernels": [
         {
             "name": "contact_solve_fwd",
@@ -446,6 +574,19 @@ def main():
             "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_bound,
             "bound_by": bwd_by,
+            "library_ms": None,
+        },
+        {
+            "name": "fused_step_fwd",
+            "route": "cuda",
+            "source": "parallax_tpu_torch/csrc/fused_step.cu",
+            "replaces": "parallax_tpu/ops/pallas_step.py:473",
+            "launches": fused_launches,
+            "max_abs_err": fused_err,
+            "ms": fused_ms,
+            "plain_ms": fused_plain_ms,
+            "bound_ms": f_bound,
+            "bound_by": f_by,
             "library_ms": None,
         },
     ]}))

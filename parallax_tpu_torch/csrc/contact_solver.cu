@@ -34,9 +34,10 @@
 // C, n and J are runtime values, so the same kernel serves any world with
 // at most MAX_BODIES bodies.  Build without --use_fast_math and with
 // --fmad=false: the plain torch version rounds every product and sum on
-// its own, and so does this kernel.  The passes live in
-// contact_solver.cuh, which the reverse pass (contact_solver_bwd.cu)
-// shares.
+// its own, and so does this kernel.  The passes and the whole
+// per-world solve (solve_world) live in contact_solver.cuh, which the
+// reverse pass (contact_solver_bwd.cu) and the fused step (fused_step.cu)
+// share.
 
 #include "contact_solver.cuh"
 
@@ -46,44 +47,7 @@ __global__ void __launch_bounds__(THREADS)
 contact_solve_kernel(const Args args) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= args.B) return;
-  const size_t B = args.B;
-  World w(args, b);
-  w.load_velocities();
-  const bool split = args.position_iterations > 0;
-  w.setup(split);
-  for (int it = 0; it < args.iterations; ++it) {
-    w.normal_pass();
-    w.friction_pass();
-  }
-
-  float qx[MAX_BODIES], qy[MAX_BODIES], qa[MAX_BODIES];
-  for (int i = 0; i < args.n; ++i) {
-    qx[i] = args.px[i * B + b];
-    qy[i] = args.py[i * B + b];
-    qa[i] = args.ang[i * B + b];
-  }
-  if (split) {
-    float pvx[MAX_BODIES], pvy[MAX_BODIES], pom[MAX_BODIES];
-    for (int i = 0; i < args.n; ++i) pvx[i] = pvy[i] = pom[i] = 0.0f;
-    for (int it = 0; it < args.position_iterations; ++it) {
-      w.position_pass(pvx, pvy, pom);
-    }
-    for (int i = 0; i < args.n; ++i) {
-      qx[i] = qx[i] + pvx[i] * args.dt;
-      qy[i] = qy[i] + pvy[i] * args.dt;
-      qa[i] = qa[i] + pom[i] * args.dt;
-    }
-  }
-  for (int j = 0; j < args.J; ++j) w.joint(j, qx, qy, qa);
-
-  for (int i = 0; i < args.n; ++i) {
-    args.opx[i * B + b] = qx[i];
-    args.opy[i * B + b] = qy[i];
-    args.ovx[i * B + b] = w.vx[i];
-    args.ovy[i * B + b] = w.vy[i];
-    args.oang[i * B + b] = qa[i];
-    args.oom[i * B + b] = w.om[i];
-  }
+  solve_world(args, b);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
-// Device code shared by the contact solve (contact_solver.cu) and its
-// reverse pass (contact_solver_bwd.cu): the solver's per-world state and
-// passes, one CUDA thread per world.
+// Device code shared by the contact solve (contact_solver.cu), its
+// reverse pass (contact_solver_bwd.cu) and the fused step (fused_step.cu):
+// the solver's per-world state and passes, one CUDA thread per world.
 //
 // Everything here computes what engine/batched.py:solve_contacts_bm
 // followed by apply_joints_bm compute, lane for lane, and rounds each
@@ -349,5 +349,53 @@ struct World {
     om[ib] = om[ib] + (rbx * jy - rby * jx) * ii_b;
   }
 };
+
+// The whole solve of world b: load the velocities, set the lanes up, run
+// the velocity passes, integrate the position passes into the poses, run
+// the joints and write the six body planes.  The solver kernel
+// (contact_solver.cu) and the fused step (fused_step.cu) both run it, so
+// their solves agree to the bit on the same contact planes.  Every read of
+// a body plane comes before the write of the same world's outputs, so the
+// input and output planes may be the same memory.
+__device__ void solve_world(const Args& args, int b) {
+  const size_t B = args.B;
+  World w(args, b);
+  w.load_velocities();
+  const bool split = args.position_iterations > 0;
+  w.setup(split);
+  for (int it = 0; it < args.iterations; ++it) {
+    w.normal_pass();
+    w.friction_pass();
+  }
+
+  float qx[MAX_BODIES], qy[MAX_BODIES], qa[MAX_BODIES];
+  for (int i = 0; i < args.n; ++i) {
+    qx[i] = args.px[i * B + b];
+    qy[i] = args.py[i * B + b];
+    qa[i] = args.ang[i * B + b];
+  }
+  if (split) {
+    float pvx[MAX_BODIES], pvy[MAX_BODIES], pom[MAX_BODIES];
+    for (int i = 0; i < args.n; ++i) pvx[i] = pvy[i] = pom[i] = 0.0f;
+    for (int it = 0; it < args.position_iterations; ++it) {
+      w.position_pass(pvx, pvy, pom);
+    }
+    for (int i = 0; i < args.n; ++i) {
+      qx[i] = qx[i] + pvx[i] * args.dt;
+      qy[i] = qy[i] + pvy[i] * args.dt;
+      qa[i] = qa[i] + pom[i] * args.dt;
+    }
+  }
+  for (int j = 0; j < args.J; ++j) w.joint(j, qx, qy, qa);
+
+  for (int i = 0; i < args.n; ++i) {
+    args.opx[i * B + b] = qx[i];
+    args.opy[i * B + b] = qy[i];
+    args.ovx[i * B + b] = w.vx[i];
+    args.ovy[i * B + b] = w.vy[i];
+    args.oang[i * B + b] = qa[i];
+    args.oom[i * B + b] = w.om[i];
+  }
+}
 
 }  // namespace

@@ -13,10 +13,14 @@ Small argmin/argmax selections stay static Python loops of running
 contact solve with the joints runs as the CUDA kernel of
 ``ops/contact_solver.py`` when ``WorldConfig.use_cuda_solver`` is set; its
 plain torch version is :func:`solve_contacts_bm` + :func:`apply_joints_bm`.
+With ``WorldConfig.use_cuda_fused`` the whole step runs as the fused
+kernel of ``ops/fused_step.py`` instead (it takes precedence); its plain
+version is this module's split step.  Neither falls back: on CUDA tensors
+a world the fused kernel does not run raises.
 
 Not ported yet (each raises ``NotImplementedError``): pair-group kernels
-other than ``pp`` (ROADMAP Queue 1 item 8) and the fused whole-step
-kernel (Queue 1 item 10).
+other than ``pp`` (ROADMAP Queue 1 item 8) and the fused kernel's
+reverse pass (Queue 2 item 4).
 """
 
 from __future__ import annotations
@@ -176,10 +180,14 @@ def build_static_tables(world) -> None:
         _side_table(world, g.part_b, Vb)
     if world.table.n_contacts:
         _solver_index(world)
-    if world.config.use_cuda_solver:
+    if world.config.use_cuda_solver or world.config.use_cuda_fused:
         from parallax_tpu_torch.ops.contact_solver import solver_operands
 
         solver_operands(world, world.config.contact)
+    if world.config.use_cuda_fused:
+        from parallax_tpu_torch.ops.fused_step import fused_operands
+
+        fused_operands(world)
 
 
 def _side_verts(world, s: _SoA, part_idx, vn: int, override_verts=None):
@@ -225,12 +233,15 @@ def _minmax_proj(nx, ny, wx, wy):
     return mn, mx
 
 
-def _pp_manifold_bm(ax, ay, ema, bx, by, emb):
+def _pp_manifold_bm(ax, ay, ema, bx, by, emb, inactive_without_axis=False):
     """Batch-minor polygon-polygon manifold.
 
     Inputs ``[G, V, B]`` vertex planes + ``[G, V]`` bool edge masks.
     Returns per-pair 2-lane manifold planes: pen/pt ``[G, 2, B]`` x/y,
-    active/weight ``[G, 2, B]``.
+    active/weight ``[G, 2, B]``.  A pair with no valid axis (a world with
+    NaN vertices) is active with infinite depth, as in the JAX split path,
+    or inactive with ``inactive_without_axis``, as in the fused step
+    (``pallas_step.py:251``).
     """
     G, Va, B = ax.shape
     Vb = bx.shape[1]
@@ -260,6 +271,8 @@ def _pp_manifold_bm(ax, ay, ema, bx, by, emb):
         by_ax = torch.where(take, NY[:, a, :], by_ax)
         bsign = torch.where(take, sign[:, a, :], bsign)
     active = best >= 0
+    if inactive_without_axis:
+        active = active & (best < INF)
     depth = torch.clamp(best, min=0.0)
     n_x = bx_ax * bsign  # MTV direction B -> A
     n_y = by_ax * bsign
@@ -376,12 +389,16 @@ def check_batched_support(config, what: str = "the batch-minor path") -> None:
         )
 
 
-def collide_batched(world, s: _SoA, terrain_override=None) -> ContactsBM:
+def collide_batched(
+    world, s: _SoA, terrain_override=None, inactive_without_axis=False
+) -> ContactsBM:
     """All pair-group kernels in batch-minor layout -> flat ``[C, B]`` lanes.
 
     ``terrain_override``: optional dict ``{part_index: ([V, B] x, [V, B] y)}``
     of world-frame vertex planes for per-world geometry (the lander's
     terrain), spliced in place of those parts' transformed vertices.
+    ``inactive_without_axis``: the fused step's rule for a pair with no
+    valid axis (see :func:`_pp_manifold_bm`).
     """
     check_batched_support(world.config, "collide_batched")
     B = s.px.shape[-1]
@@ -418,7 +435,9 @@ def collide_batched(world, s: _SoA, terrain_override=None) -> ContactsBM:
         Va, Vb, ema, emb = _group_masks(world, g)
         axv, ayv = side(g.part_a, Va)
         bxv, byv = side(g.part_b, Vb)
-        px, py, qx, qy, act, wgt = _pp_manifold_bm(axv, ayv, ema, bxv, byv, emb)
+        px, py, qx, qy, act, wgt = _pp_manifold_bm(
+            axv, ayv, ema, bxv, byv, emb, inactive_without_axis
+        )
         if world.config.broadphase:
             ov = _overlap_bm(
                 axv.amin(1), axv.amax(1), ayv.amin(1), ayv.amax(1),
@@ -655,12 +674,10 @@ def apply_joints_bm(world, s: _SoA) -> _SoA:
 # ---------------------------------------------------------------------------
 
 
-def physics_core(
-    world, s: _SoA, dt: Optional[float] = None, accel=None, terrain_override=None
-) -> tuple[_SoA, ContactsBM]:
-    """The full physics step in the batch-minor frame (integrate + gravity +
-    collide + solve + joints).  Plane-space rollouts loop over this."""
-    check_batched_support(world.config)
+def integrate_bm(world, s: _SoA, dt: Optional[float] = None, accel=None):
+    """The step's first phase, integration and gravity (movable bodies
+    only), in the order ``WorldConfig.integrator`` names.  Returns ``(s,
+    dt)`` with ``dt`` resolved from the config when None."""
     cfg = world.config
     dt = cfg.dt if dt is None else dt
     gx, gy = cfg.gravity
@@ -684,10 +701,25 @@ def physics_core(
         return s._replace(vx=s.vx + gx * dt * mov, vy=s.vy + gy * dt * mov)
 
     if cfg.integrator == "symplectic":
-        s = integrate(grav(s))
-    else:
-        s = grav(integrate(s))
+        return integrate(grav(s)), dt
+    return grav(integrate(s)), dt
 
+
+def physics_core(
+    world, s: _SoA, dt: Optional[float] = None, accel=None, terrain_override=None
+) -> tuple[_SoA, ContactsBM]:
+    """The full physics step in the batch-minor frame (integrate + gravity +
+    collide + solve + joints).  Plane-space rollouts loop over this."""
+    check_batched_support(world.config)
+    cfg = world.config
+    if cfg.use_cuda_fused:
+        from parallax_tpu_torch.ops.fused_step import physics_core_fused
+
+        return physics_core_fused(
+            world, s, terrain_override=terrain_override, dt=dt, accel=accel
+        )
+
+    s, dt = integrate_bm(world, s, dt, accel)
     con = collide_batched(world, s, terrain_override)
     if cfg.use_cuda_solver and world.table.n_contacts > 0:
         from parallax_tpu_torch.ops.contact_solver import solve_contacts

@@ -46,6 +46,12 @@ class WorldConfig:
     # (ops/contact_solver.py) when the body planes are CUDA tensors; on CPU
     # tensors the plain torch version runs
     use_cuda_solver: bool = False
+    # run the whole step (integrate, collide, solve, joints) as the fused
+    # CUDA kernel (ops/fused_step.py), the twin of the JAX package's
+    # use_pallas_fused; it takes precedence over use_cuda_solver.  On CUDA
+    # tensors a world it does not run raises; on CPU tensors its plain
+    # version runs
+    use_cuda_fused: bool = False
 
 
 @dataclasses.dataclass

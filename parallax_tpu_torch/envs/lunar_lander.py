@@ -8,11 +8,15 @@ jax's threefry bits).
 Bodies: 0 lander (6-gon), 1 right leg, 2 left leg (quads), 3 ground (7
 quad terrain segments whose vertices live in the state, one terrain per
 world).  The world runs the contact solve as the CUDA kernel when its
-tensors are on a GPU (``WorldConfig.use_cuda_solver``).
+tensors are on a GPU (``WorldConfig.use_cuda_solver``), or, with
+``LanderConfig(use_cuda_fused=True, broadphase=False)``, the whole step
+as the fused kernel (``ops/fused_step.py``, the twin of
+``use_pallas_fused``; no reverse pass yet, so on the GPU it refuses
+autograd).
 
 Not ported: the per-world ``reset_fn``/``step_fn`` and the continuous-time
 evaluation (ROADMAP Queue 1 item 11), and ``LanderConfig``'s
-``terrain_candidates`` and ``use_pallas_fused`` options.
+``terrain_candidates`` option.
 """
 
 from __future__ import annotations
@@ -79,6 +83,9 @@ class LanderConfig:
     narrowphase: str = "sat"
     broadphase: bool = True
     contact: object = None  # Optional[ContactSolverConfig]; None = default
+    # run the whole physics step as one CUDA kernel (ops/fused_step.py);
+    # requires broadphase=False (the kernel has no AABB pre-mask stage)
+    use_cuda_fused: bool = False
     # lander contact graphs are shallow (legs + lander vs ground)
     solver_iterations: int = 3
     position_iterations: int = 2
@@ -185,6 +192,14 @@ class LunarLander(PlaneEnvMixin, Environment):
 
     def __init__(self, config: LanderConfig = LanderConfig(), device="cuda"):
         self.config = config
+        if config.use_cuda_fused and config.broadphase:
+            # a silent fallback to the split path would make users believe
+            # they are measuring the fused kernel
+            raise ValueError(
+                "use_cuda_fused requires broadphase=False (the fused "
+                "kernel has no AABB pre-mask stage): "
+                "LanderConfig(use_cuda_fused=True, broadphase=False)"
+            )
         self.device = resolve_device(device)
 
         lander = BodyDef(
@@ -258,6 +273,7 @@ class LunarLander(PlaneEnvMixin, Environment):
             solver_iterations=config.solver_iterations,
             position_iterations=config.position_iterations,
             use_cuda_solver=True,
+            use_cuda_fused=config.use_cuda_fused,
         )
         self.world, self._init_bodies = World.build(
             [lander, right_leg, left_leg, ground], wc, joints=joints,

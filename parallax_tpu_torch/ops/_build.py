@@ -26,14 +26,16 @@ LIB_NAME = "libparallax_kernels.so"
 
 # No --use_fast_math, and --fmad=false: the kernels round each product and
 # sum on its own, as the plain torch versions they are checked against do.
+# -Xptxas -v reports each kernel's registers, stack and spills.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process, or None
+ptxas_report = None  # {source name: ptxas -v lines} of that build, or None
 
 
 def _nvcc() -> str:
@@ -61,8 +63,9 @@ def _digest() -> str:
     return h.hexdigest()
 
 
-def _run_all(cmds) -> None:
-    """Run the commands at once; raise with nvcc's output if any failed."""
+def _run_all(cmds) -> list:
+    """Run the commands at once; raise with nvcc's output if any failed,
+    else return their outputs."""
     procs = [
         subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for cmd in cmds
@@ -71,11 +74,12 @@ def _run_all(cmds) -> None:
     for cmd, proc, out in zip(cmds, procs, outputs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return outputs
 
 
 def build() -> Path:
     """Compile the kernels unless the stamped build matches the sources."""
-    global build_seconds
+    global build_seconds, ptxas_report
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = _digest()
@@ -87,13 +91,20 @@ def build() -> Path:
     tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in objs.items()])
+        outs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in objs.items()])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs.values()]])
         os.replace(tmp, lib)
     finally:
         for f in (*objs.values(), tmp):
             Path(f).unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
+    ptxas_report = {
+        Path(src).name: [
+            line.strip() for line in out.splitlines()
+            if any(k in line for k in ("entry function", "registers", "stack frame"))
+        ]
+        for src, out in zip(objs, outs)
+    }
     stamp.write_text(digest)
     return lib
 
@@ -126,6 +137,21 @@ _SIGNATURES = {
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
         + [_I, _P]  # has_max_bias, stream
     ),
+    "fused_step_fwd": (
+        [_P] * 6  # px, py, vx, vy, angle, omega
+        + [_P] * 2  # terrain x, y
+        + [_P] * 6  # outputs
+        + [_P]  # active (out)
+        + [_P] * 3  # part_i, part_lv, pair_i
+        + [_P] * 9  # the solver operands, as for contact_solve_fwd
+        + [_P] * 2  # geo, scratch
+        + [_I] * 5  # P, pairs, V, override_bits, symplectic
+        + [_F] * 2  # gravity x and y times dt
+        + [_I] * 6  # B, C, n, J, iterations, position_iterations
+        + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
+        + [_I, _P]  # has_max_bias, stream
+    ),
+    "fused_step_max_parts": [],
     "contact_solver_num_fields": [],
     "contact_solver_max_bodies": [],
     "contact_solver_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations

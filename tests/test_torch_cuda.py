@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from parallax_tpu_torch.engine import batched as tb
-from parallax_tpu_torch.envs.lunar_lander import LunarLander
-from parallax_tpu_torch.ops import contact_solver
+from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
+from parallax_tpu_torch.ops import contact_solver, fused_step
 from parallax_tpu_torch.parallel import rollout
 
 ATOL = 1e-5  # kernel vs plain version: float32 rounding and sum order
@@ -26,6 +26,13 @@ def cuda_env():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
     return LunarLander(device="cuda")
+
+
+@pytest.fixture(scope="module")
+def fused_env():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    return LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True), device="cuda")
 
 
 def _keys(B, seed):
@@ -183,3 +190,100 @@ def test_train_step_on_card_runs_both_kernels(cuda_env):
     assert torch.isfinite(loss)
     for g in grads:
         assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+def _override(env, st):
+    aux = env.plane_pack(st)
+    return {p: (aux.tox[i], aux.toy[i]) for i, p in enumerate(env._ground_parts)}
+
+
+@pytest.mark.cuda
+def test_fused_kernel_matches_plain_version_on_card(cuda_env, fused_env):
+    st, s, _ = _contact_scenario(cuda_env, 1024)
+    override = _override(fused_env, st)
+    before = fused_step.launches
+    got_s, got_c = fused_step.physics_core_fused(fused_env.world, s, override)
+    assert fused_step.launches == before + 1
+    want_s, want_c = fused_step.fused_step_plain(fused_env.world, s, override)
+    torch.cuda.synchronize()
+    assert int(want_c.active.sum()) > 100
+    assert torch.equal(got_c.active, want_c.active)
+    for f, x, y in zip(got_s._fields, got_s, want_s):
+        err = (x - y).abs().max().item()
+        assert err <= ATOL, (f, err)
+
+
+@pytest.mark.cuda
+def test_fused_rollout_launches_the_fused_kernel_every_step(fused_env):
+    st = fused_env.reset_fn_batch(_keys(256, 3))
+    f0, s0 = fused_step.launches, contact_solver.launches
+    _, traj = fused_env.rollout_batch(st, _zero, 10)
+    torch.cuda.synchronize()
+    assert fused_step.launches - f0 == 10
+    assert contact_solver.launches == s0
+    assert torch.isfinite(traj.obs).all() and torch.isfinite(traj.reward).all()
+
+
+@pytest.mark.cuda
+def test_nan_world_is_truncated_and_reset_on_the_fused_path(fused_env):
+    bad = 5
+    st = fused_env.reset_fn_batch(_keys(256, 7))
+    vel = st.bodies.vel.clone()
+    vel[bad, 0, 0] = float("nan")
+    final, traj = fused_env.rollout_batch(st._replace(bodies=st.bodies._replace(vel=vel)),
+                                          _zero, 3)
+    tr = traj.truncated.cpu()
+    assert tr[0, bad] and tr[0].sum() == 1
+    assert traj.reward[0, bad] == 0.0 and (traj.obs[0, bad] == 0.0).all()
+    assert torch.isfinite(traj.obs).all()
+    assert torch.isfinite(final.bodies.pos).all()
+    assert int(final.t[bad]) == 2  # reset after the first step
+
+
+@pytest.mark.cuda
+def test_fused_wrapper_refuses_bad_inputs_on_card(cuda_env, fused_env):
+    st = fused_env.reset_fn_batch(_keys(256, 5))
+    s = tb._to_soa(st.bodies)
+    override = _override(fused_env, st)
+    world = fused_env.world
+    with pytest.raises(ValueError, match="dtype"):
+        fused_step.physics_core_fused(world, s._replace(px=s.px.double()), override)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_step.physics_core_fused(world, s._replace(px=s.px.T.contiguous().T), override)
+    p = fused_env._ground_parts[0]
+    with pytest.raises(ValueError, match="expected cuda"):
+        fused_step.physics_core_fused(
+            world, s, {**override, p: (override[p][0].cpu(), override[p][1])}
+        )
+    with pytest.raises(ValueError, match="shape"):
+        fused_step.physics_core_fused(
+            world, s, {**override, p: (override[p][0][:4], override[p][1][:4])}
+        )
+    # the broadphase-on world is one the kernel does not run: no split path
+    with pytest.raises(ValueError, match="broadphase=False"):
+        fused_step.physics_core_fused(cuda_env.world, s, override)
+
+
+@pytest.mark.cuda
+def test_fused_step_under_autograd_raises_on_card(fused_env):
+    st = fused_env.reset_fn_batch(_keys(256, 9))
+    s = tb._to_soa(st.bodies)
+    override = _override(fused_env, st)
+    before = fused_step.launches
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+        fused_step.physics_core_fused(
+            fused_env.world, s._replace(vy=s.vy.clone().requires_grad_(True)), override
+        )
+    w = torch.zeros((9, 2), device="cuda", requires_grad=True)
+
+    def policy(p, obs):
+        return torch.tanh(obs @ p)
+
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
+        rollout.make_loss_fn(fused_env, policy, 2)(w, st)
+    assert fused_step.launches == before
+    with torch.no_grad():
+        fused_step.physics_core_fused(
+            fused_env.world, s._replace(vy=s.vy.clone().requires_grad_(True)), override
+        )
+    assert fused_step.launches == before + 1
