@@ -19,7 +19,10 @@ the card agrees with the same run on the CPU:
   100, 4 checkpoint segments, the 9-32-2 tanh policy and Adam at lr 3e-3
   (the configuration of ``bench.py --train``); it runs the contact-solve
   kernel in the forward and in each segment's recompute, and its reverse
-  pass in the backward.
+  pass in the backward;
+* the fused train step: the same over the fused world; it runs the fused
+  step's kernel in the forward and the recompute, and its reverse pass in
+  the backward, and neither solver kernel.
 
 It prints the card's name and power limit, the timings, one JSON line of
 per-kernel results and, last, one JSON line ``{"ok": true, "device":
@@ -39,15 +42,15 @@ import numpy as np
 import torch
 
 B = 8192
-STEPS = 200
+STEPS = 100
 ATOL = 1e-5  # kernel vs plain version: the JAX tests' bar, float32 rounding
 RTOL = 2e-4  # reverse pass vs plain VJP: the JAX package's bar for its backward
 SMALL_B, SMALL_STEPS = 1024, 60
 CPU_ATOL = 1e-3  # card vs CPU rollout after 60 steps (rounding grows with steps)
 CPU_DONE_SHARE = 0.99
-HORIZON, SEGMENTS, TRAIN_CALLS = 100, 4, 2
+HORIZON, SEGMENTS = 100, 4
 SMALL_H = 12
-PROFILE_H = 8  # the profiled train step: short, so its trace stays small
+PROFILE_H = 4  # the profiled train step: short, so its trace stays small
 # card vs CPU train step: the loss is a mean of 12 rewards that agree to
 # float32 rounding; the gradients pass through 12 contact steps and their
 # backward, where the 2x2 block solves amplify rounding differences (the
@@ -145,8 +148,7 @@ def fused_bound_ms(world, override_parts, n_active, B):
     parts = ops_.part_i.tolist()
     per_world = 0
     for _, _, va, vb, _, _ in ops_.pair_i.tolist():
-        A = va + vb
-        per_world += 9 * A + A * (3 * A + 2 * (A - 2) + 4) + 4 * A + 85
+        per_world += pair_ops(va, vb)
     per_world += sum(8 * nv for p, (_, _, nv) in enumerate(parts) if p not in override_parts)
     n, C, J = world.n_bodies, world.table.n_contacts, world.joints.n_joints
     per_world += 48 * n
@@ -159,6 +161,48 @@ def fused_bound_ms(world, override_parts, n_active, B):
     t_bytes, t_ops = nbytes / HBM_BPS, ops / F32_FLOPS
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
+
+
+def fused_bwd_bound_ms(world, override_parts, n_active, touched, B):
+    """The least time of one reverse pass of the fused step on this card:
+    the larger of its bytes (the six body planes, their six cotangents and
+    the terrain rows the pairs read, once; six body planes and the terrain
+    planes' cotangents written once) over the HBM rate and its float32
+    operations over the float32 rate.  Operations are counted from the
+    kernel's arithmetic: the recompute is the forward step
+    (``fused_bound_ms``), the solver's reverse pass about twice the solve
+    again (``solver_bound_ms``), and each pair with an active lane (their
+    counts per pair are ``touched``; the others have zero cotangents and
+    are skipped) runs its SAT again and its adjoint: about 17 a vertex of
+    both polygons (the projection chains replayed and walked back) and 160
+    for the clips, the tangent and the edge normal."""
+    from parallax_tpu_torch.geometry.shapes import MAX_VERTS
+    from parallax_tpu_torch.ops.fused_step import fused_operands
+
+    ops_ = fused_operands(world)
+    parts = ops_.part_i.tolist()
+    _, _, _, f_ops = fused_bound_ms(world, override_parts, n_active, B)
+    n, J = world.n_bodies, world.joints.n_joints
+    cfg = world.config
+    solve_ops = n_active * (
+        80 + 90 * cfg.solver_iterations + 38 * cfg.position_iterations
+    ) + 60 * J * B
+    adjoint = sum(
+        t * (pair_ops(va, vb) + 17 * (va + vb) + 160)
+        for t, (_, _, va, vb, _, _) in zip(touched, ops_.pair_i.tolist())
+    )
+    ops = f_ops + 2 * solve_ops + adjoint
+    terrain_rows = sum(parts[p][2] for p in override_parts)
+    nbytes = (18 * n + 2 * terrain_rows + 2 * MAX_VERTS * len(override_parts)) * B * 4
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def pair_ops(va, vb):
+    """float32 operations of one pair's SAT and clip (see fused_bound_ms)."""
+    A = va + vb
+    return 9 * A + A * (3 * A + 2 * (A - 2) + 4) + 4 * A + 85
 
 
 def zero_policy(_, obs):
@@ -185,7 +229,7 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profile_train(loss_fn, params, states, gpu):
+def profile_train(label, loss_fn, params, states, gpu):
     """One short train step (forward + backward) under ``torch.profiler``,
     its kernels already warm from the full-width steps: device kernels,
     their summed time, the wall time of the forward and of the backward,
@@ -215,7 +259,7 @@ def profile_train(loss_fn, params, states, gpu):
     count = sum(n for n, _ in by_name.values())
     busy = sum(t for _, t in by_name.values())
     check(count > 0, "the profiler saw no device kernels")
-    print(f"[profile] train step B={B} h={PROFILE_H} (2 segments): {count} device kernels, "
+    print(f"[profile] {label} train step B={B} h={PROFILE_H} (2 segments): {count} device kernels, "
           f"{busy / 1e3:.2f} ms device time in {wall_us / 1e3:.2f} ms wall (forward "
           f"{fwd_us / 1e3:.2f} ms, backward {(wall_us - fwd_us) / 1e3:.2f} ms), busy "
           f"{busy / wall_us:.3f} of it, on {gpu}")
@@ -329,10 +373,10 @@ def main():
         t = [cuda_ms(f, reps) for f in (fn, plain, fn, plain)]
         return min(t[0], t[2]), min(t[1], t[3]), t
 
-    kernel_ms, plain_ms, t = turns(kernel_call, plain_call, 50)
+    kernel_ms, plain_ms, t = turns(kernel_call, plain_call, 20)
     print(f"[time] solve+joints per call at B={B}: kernel {kernel_ms:.4f} ms, "
           f"plain torch {plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
-    bwd_ms, bwd_plain_ms, t = turns(bwd_call, bwd_plain_call, 20)
+    bwd_ms, bwd_plain_ms, t = turns(bwd_call, bwd_plain_call, 10)
     print(f"[time] reverse pass per call at B={B}: kernel {bwd_ms:.4f} ms, "
           f"plain autograd {bwd_plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
     counts = (n_active, B, C, n, J, cfg.solver_iterations, cfg.position_iterations)
@@ -369,6 +413,37 @@ def main():
     f_bound, f_by, f_bytes, f_ops = fused_bound_ms(env_f.world, sorted(override), f_active, B)
     print(f"[bound] fused step at B={B}, {f_active} active lanes: {f_bound:.5f} ms ({f_by}; "
           f"{f_bytes / 1e6:.2f} MB, {f_ops / 1e6:.1f} M float32 operations)")
+
+    got = fused_step.fused_step_bwd(env_f.world, s, override, cot)
+    want = fused_step.fused_step_bwd_plain(env_f.world, s, override, cot)
+    torch.cuda.synchronize()
+    fbwd_err = 0.0
+    for f, a, b in zip([*s._fields, "terrain x", "terrain y"], (*got[0], *got[1:]),
+                       (*want[0], *want[1:])):
+        err = (a - b).abs()
+        check(torch.isfinite(a).all().item(), f"fused reverse pass: non-finite {f}")
+        check((err <= ATOL + RTOL * b.abs()).all().item(),
+              f"fused reverse pass vs plain VJP: {f} differs by {err.max().item()}")
+        fbwd_err = max(fbwd_err, err.max().item())
+    check(all(x.abs().max().item() > 0 for x in got[0]), "fused reverse pass: a dead body plane")
+    print(f"[kernel] fused_step_bwd vs plain VJP at B={B}: max |diff| {fbwd_err:.3e} "
+          f"(rtol {RTOL}, atol {ATOL})")
+
+    def fused_bwd_call():
+        fused_step.fused_step_bwd(env_f.world, s, override, cot)
+
+    def fused_bwd_plain_call():
+        fused_step.fused_step_bwd_plain(env_f.world, s, override, cot)
+
+    fbwd_ms, fbwd_plain_ms, t = turns(fused_bwd_call, fused_bwd_plain_call, 5)
+    print(f"[time] fused reverse pass per call at B={B}: kernel {fbwd_ms:.4f} ms, plain "
+          f"autograd {fbwd_plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+    touched = want_c.active.view(-1, 2, B).any(1).sum(1).tolist()
+    fb_bound, fb_by, fb_bytes, fb_ops = fused_bwd_bound_ms(
+        env_f.world, sorted(override), f_active, touched, B)
+    print(f"[bound] fused reverse pass at B={B}, {sum(touched)} pairs touching: "
+          f"{fb_bound:.5f} ms ({fb_by}; {fb_bytes / 1e6:.2f} MB, {fb_ops / 1e6:.1f} M float32 "
+          f"operations)")
 
     lap("phase 4 starts")
     # -- phase 4: the rollout path ---------------------------------------------------
@@ -455,7 +530,7 @@ def main():
 
     lap("phase 5 starts")
     # -- phase 5: times of the rollout --------------------------------------------------
-    steps = 50
+    steps = 30
     states = env.reset_fn_batch(keys_for(B, 5, dev))
     rates = {"split": [], "fused": []}
     for label in ("split", "fused", "fused", "split"):
@@ -485,12 +560,14 @@ def main():
     }
     for label, fn in layers.items():
         cuda_ms(fn, 3)
-        print(f"[time] {label}: {cuda_ms(fn, 20):.4f} ms per call at B={B} on {gpu}")
+        print(f"[time] {label}: {cuda_ms(fn, 10):.4f} ms per call at B={B} on {gpu}")
 
     lap("phase 6 starts")
     # -- phase 6: the train path, card against CPU ----------------------------------
-    cpu_st = lowered(env_cpu.reset_fn_batch(keys_for(SMALL_B, 6, "cpu")), "cpu")
-    cpu_st, _ = env_cpu.rollout_batch(cpu_st, zero_policy, 40)
+    # the contact state, made on the card; both runs start from it
+    st = lowered(env.reset_fn_batch(keys_for(SMALL_B, 6, dev)), dev)
+    st, _ = env.rollout_batch(st, zero_policy, 40)
+    cpu_st = tree_map(lambda x: x.cpu(), st)
     res = {}
     for d, e in (("cuda", env), ("cpu", env_cpu)):
         st = tree_map(lambda x: x.to(d), cpu_st)
@@ -507,47 +584,70 @@ def main():
     check(grad_rel <= GRAD_RTOL, f"policy grads: card vs CPU rel diff {grad_rel}")
     check(all(g.norm().item() > 0 for g in grads_g), "a policy gradient is zero")
 
+    # the fused train path on the card against the same CPU run: on the CPU
+    # the fused step's train path equals the split one to the bit
+    # (tests/test_torch_fused_step.py), so the split CPU run is its reference
+    st = tree_map(lambda x: x.to(dev), cpu_st)
+    p = mlp_params(dev)
+    loss, _ = rollout.make_loss_fn(env_f, mlp, SMALL_H, checkpoint_segments=2)(p, st)
+    loss_f, grads_f = loss.item(), [x.cpu() for x in torch.autograd.grad(loss, list(p.values()))]
+    floss_rel = abs(loss_f - loss_c) / abs(loss_c)
+    fgrad_rel = max((a - b).norm().item() / b.norm().item() for a, b in zip(grads_f, grads_c))
+    print(f"[check] fused train loss+grads B={SMALL_B} h={SMALL_H} from the contact state, card "
+          f"vs CPU: loss {loss_f:.7f} vs {loss_c:.7f} (rel {floss_rel:.2e}), policy grads max "
+          f"rel diff in norm {fgrad_rel:.2e}")
+    check(floss_rel <= LOSS_RTOL, f"fused train loss: card vs CPU rel diff {floss_rel}")
+    check(fgrad_rel <= GRAD_RTOL, f"fused policy grads: card vs CPU rel diff {fgrad_rel}")
+    check(all(g.norm().item() > 0 for g in grads_f), "a fused policy gradient is zero")
+
     lap("phase 7 starts")
-    # -- phase 7: the train path at full width ----------------------------------------
-    params = mlp_params(dev)
-    step = rollout.make_train_step(env, mlp, rollout.adam(params, 3e-3), HORIZON,
-                                   checkpoint_segments=SEGMENTS)
-    states = env.reset_fn_batch(keys_for(B, 7, dev))
-    params, states, m = step(params, states)  # warm-up
-    lap("train warm-up done")
-    torch.cuda.synchronize()
-    check(np.isfinite(m["loss"].item()), "warm-up train step: non-finite loss")
-    torch.cuda.reset_peak_memory_stats()
-    contact_solver.launches = 0
-    contact_solver.bwd_launches = 0
-    secs = []
-    for _ in range(TRAIN_CALLS):
-        f0, b0 = contact_solver.launches, contact_solver.bwd_launches
+    # -- phase 7: the train path at full width, split and fused -------------------------
+    runs = {}
+    for label, e in (("split", env), ("fused", env_f)):
+        params = mlp_params(dev)
+        step = rollout.make_train_step(e, mlp, rollout.adam(params, 3e-3), HORIZON,
+                                       checkpoint_segments=SEGMENTS)
+        states = e.reset_fn_batch(keys_for(B, 7, dev))
+        params, states, m = step(params, states)  # warm-up
+        check(np.isfinite(m["loss"].item()), f"{label} warm-up train step: non-finite loss")
+        runs[label] = (e, step, params, states)
+    lap("train warm-ups done")
+    # one timed step each, in turns; each counts its launches from zero
+    want_counts = {"split": (2 * HORIZON, HORIZON, 0, 0), "fused": (0, 0, 2 * HORIZON, HORIZON)}
+    train = {}
+    for label in ("split", "fused"):
+        e, step, params, states = runs[label]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        contact_solver.launches = contact_solver.bwd_launches = 0
+        fused_step.launches = fused_step.bwd_launches = 0
         t0 = time.perf_counter()
         params, states, m = step(params, states)
         loss = m["loss"].item()  # synchronizes
-        secs.append(time.perf_counter() - t0)
-        fl, bl = contact_solver.launches - f0, contact_solver.bwd_launches - b0
-        check(np.isfinite(loss), f"train step: non-finite loss {loss}")
-        check(fl == 2 * HORIZON, f"train step: {fl} forward launches, want {2 * HORIZON}")
-        check(bl == HORIZON, f"train step: {bl} reverse-pass launches, want {HORIZON}")
-        print(f"[train] step B={B} h={HORIZON} segments={SEGMENTS}: loss {loss:.6f}, "
-              f"{secs[-1]:.3f} s, launches fwd {fl} bwd {bl}")
-    train_launches, train_bwd_launches = contact_solver.launches, contact_solver.bwd_launches
-    check(all(torch.isfinite(p).all().item() for p in params.values()), "non-finite params")
-    train_rate = B * HORIZON / min(secs)
-    print(f"[time] lunarlander_train_env_steps_per_sec_per_chip_batch{B}_h{HORIZON}: "
-          f"{train_rate:.1f} env-steps/s (best of {TRAIN_CALLS} train steps, "
-          f"{[round(x, 3) for x in secs]} s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) on {gpu}")
-
-    print(f"[main] train path: {train_launches} forward and {train_bwd_launches} reverse-pass "
-          f"launches in {TRAIN_CALLS} train steps")
+        sec = time.perf_counter() - t0
+        counts = (contact_solver.launches, contact_solver.bwd_launches,
+                  fused_step.launches, fused_step.bwd_launches)
+        check(np.isfinite(loss), f"{label} train step: non-finite loss {loss}")
+        check(counts == want_counts[label],
+              f"{label} train step: launches (solver fwd, bwd, fused fwd, bwd) {counts}, "
+              f"want {want_counts[label]}")
+        check(all(torch.isfinite(p).all().item() for p in params.values()),
+              f"{label} train step: non-finite params")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train[label] = (sec, counts)
+        runs[label] = (e, step, params, states)
+        print(f"[train] {label} step B={B} h={HORIZON} segments={SEGMENTS}: loss {loss:.6f}, "
+              f"{sec:.3f} s, launches solver fwd {counts[0]} bwd {counts[1]}, fused fwd "
+              f"{counts[2]} bwd {counts[3]}, peak memory {peak:.2f} GiB")
+    print(f"[time] lunarlander_train_env_steps_per_sec_per_chip_batch{B}_h{HORIZON}: split "
+          f"{B * HORIZON / train['split'][0]:.1f}, fused {B * HORIZON / train['fused'][0]:.1f} "
+          f"env-steps/s (one timed train step each after a warm-up, in turns) on {gpu}")
 
     # where a train step's time goes: the forward under autograd, then the
     # backward (each segment's recompute and its reverse passes)
     lap("train steps done")
-    profile_train(rollout.make_loss_fn(env, mlp, PROFILE_H, 2), params, states, gpu)
+    for label, (e, _, params, states) in runs.items():
+        profile_train(label, rollout.make_loss_fn(e, mlp, PROFILE_H, 2), params, states, gpu)
     lap("done")
     print(json.dumps({"kernels": [
         {
@@ -568,7 +668,7 @@ def main():
             "route": "cuda",
             "source": "parallax_tpu_torch/csrc/contact_solver_bwd.cu",
             "replaces": "parallax_tpu/ops/pallas_solver.py:534",
-            "launches": train_bwd_launches,
+            "launches": train["split"][1][1],
             "max_abs_err": bwd_err,
             "ms": bwd_ms,
             "plain_ms": bwd_plain_ms,
@@ -587,6 +687,19 @@ def main():
             "plain_ms": fused_plain_ms,
             "bound_ms": f_bound,
             "bound_by": f_by,
+            "library_ms": None,
+        },
+        {
+            "name": "fused_step_bwd",
+            "route": "cuda",
+            "source": "parallax_tpu_torch/csrc/fused_step_bwd.cu",
+            "replaces": "parallax_tpu/ops/pallas_step.py:495",
+            "launches": train["fused"][1][3],
+            "max_abs_err": fbwd_err,
+            "ms": fbwd_ms,
+            "plain_ms": fbwd_plain_ms,
+            "bound_ms": fb_bound,
+            "bound_by": fb_by,
             "library_ms": None,
         },
     ]}))

@@ -14,13 +14,13 @@ contact solve with the joints runs as the CUDA kernel of
 ``ops/contact_solver.py`` when ``WorldConfig.use_cuda_solver`` is set; its
 plain torch version is :func:`solve_contacts_bm` + :func:`apply_joints_bm`.
 With ``WorldConfig.use_cuda_fused`` the whole step runs as the fused
-kernel of ``ops/fused_step.py`` instead (it takes precedence); its plain
-version is this module's split step.  Neither falls back: on CUDA tensors
-a world the fused kernel does not run raises.
+kernel of ``ops/fused_step.py`` instead (it takes precedence), and under
+autograd its reverse-pass kernel is the backward; its plain version is
+this module's split step.  Neither falls back: on CUDA tensors a world the
+fused kernel does not run raises.
 
-Not ported yet (each raises ``NotImplementedError``): pair-group kernels
-other than ``pp`` (ROADMAP Queue 1 item 8) and the fused kernel's
-reverse pass (Queue 2 item 4).
+Not ported yet (raises ``NotImplementedError``): pair-group kernels other
+than ``pp`` (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -48,9 +48,10 @@ class WorldConfig:
     use_cuda_solver: bool = False
     # run the whole step (integrate, collide, solve, joints) as the fused
     # CUDA kernel (ops/fused_step.py), the twin of the JAX package's
-    # use_pallas_fused; it takes precedence over use_cuda_solver.  On CUDA
-    # tensors a world it does not run raises; on CPU tensors its plain
-    # version runs
+    # use_pallas_fused; it takes precedence over use_cuda_solver.  Under
+    # autograd its reverse-pass kernel is the backward.  On CUDA tensors a
+    # world it does not run raises; on CPU tensors its plain version runs,
+    # and autograd of it is the backward
     use_cuda_fused: bool = False
 
 

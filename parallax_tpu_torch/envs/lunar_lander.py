@@ -11,8 +11,7 @@ world).  The world runs the contact solve as the CUDA kernel when its
 tensors are on a GPU (``WorldConfig.use_cuda_solver``), or, with
 ``LanderConfig(use_cuda_fused=True, broadphase=False)``, the whole step
 as the fused kernel (``ops/fused_step.py``, the twin of
-``use_pallas_fused``; no reverse pass yet, so on the GPU it refuses
-autograd).
+``use_pallas_fused``), whose reverse-pass kernel carries training.
 
 Not ported: the per-world ``reset_fn``/``step_fn`` and the continuous-time
 evaluation (ROADMAP Queue 1 item 11), and ``LanderConfig``'s

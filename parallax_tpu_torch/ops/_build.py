@@ -151,10 +151,26 @@ _SIGNATURES = {
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
         + [_I, _P]  # has_max_bias, stream
     ),
+    "fused_step_bwd": (
+        [_P] * 6  # px, py, vx, vy, angle, omega
+        + [_P] * 2  # terrain x, y
+        + [_P] * 6  # cotangents of the six outputs
+        + [_P] * 6  # cotangents of the six body planes (out)
+        + [_P] * 2  # cotangents of the terrain planes (out)
+        + [_P] * 3  # part_i, part_lv, pair_i
+        + [_P] * 9  # the solver operands, as for contact_solve_fwd
+        + [_P]  # scratch
+        + [_I] * 5  # P, pairs, V, override_bits, symplectic
+        + [_F] * 2  # gravity x and y times dt
+        + [_I] * 6  # B, C, n, J, iterations, position_iterations
+        + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
+        + [_I, _P]  # has_max_bias, stream
+    ),
     "fused_step_max_parts": [],
     "contact_solver_num_fields": [],
     "contact_solver_max_bodies": [],
     "contact_solver_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations
+    "fused_step_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations
 }
 
 

@@ -1,4 +1,4 @@
-"""The fused physics step: CUDA kernel, wrapper and plain version.
+"""The fused physics step: CUDA kernels, wrapper and plain versions.
 
 ``csrc/fused_step.cu`` replaces ``parallax_tpu/ops/pallas_step.py``'s
 ``_step_kernel`` for worlds whose pair groups are all polygon-polygon
@@ -8,15 +8,20 @@ contact solve and the joints, one CUDA thread per world.  The contact
 geometry stays inside the kernel; it returns the body planes and the
 ``[C, B]`` active flags.  Its plain version, :func:`fused_step_plain`, is
 the split step of ``engine.batched`` with the plain solver.
+``csrc/fused_step_bwd.cu`` replaces its reverse pass, ``_step_bwd_kernel``:
+it recomputes the step from the primal inputs and returns the cotangents
+of the body planes and of the terrain planes; its plain version,
+:func:`fused_step_bwd_plain`, is autograd of :func:`fused_step_plain`.
 
 :func:`physics_core_fused` chooses by the tensors' device and nothing
-else: on CPU tensors it runs the plain version (autograd of its plain ops
-is the backward); on CUDA tensors it checks the world and the planes and
-launches the kernel.  A world the kernel does not run, a failing build or
-a failing launch raises.  The kernel's reverse pass is not ported yet, so
-on CUDA tensors under autograd it raises too (ROADMAP Queue 2 item 4):
-there is no silent split path.  ``launches`` counts the kernel's launches;
-only the launch itself adds to it.
+else: on CPU tensors it runs the plain version, and autograd of its plain
+ops is the backward; on CUDA tensors it checks the world and the planes
+and launches the forward kernel, and under autograd (grad enabled and an
+input that requires it) it does so through :class:`_FusedStep`, whose
+backward launches the reverse-pass kernel.  A world the kernels do not
+run, a failing build or a failing launch raises: there is no silent split
+path.  ``launches`` and ``bwd_launches`` count the two kernels' launches;
+only the launches themselves add to them.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from parallax_tpu_torch.geometry.shapes import BOX, MAX_VERTS, edge_mask_for
 
 # kernel launches in this process (see module docstring)
 launches = 0
+bwd_launches = 0
 
 # pair-group kernels the fused kernel runs; the JAX kernel's circle and box
 # lanes (cc, cb, bb, area_cb) come with RoboCup and billiards
@@ -154,10 +160,49 @@ def fused_step_plain(world, s, terrain_override=None, dt=None, accel=None):
     return s, _exported(con.active)
 
 
+def fused_step_bwd_plain(world, s, terrain_override, grads, dt=None, accel=None):
+    """The reverse-pass kernel's plain version: the VJP of
+    :func:`fused_step_plain` at ``(s, terrain_override)`` for the cotangents
+    ``grads`` (an ``_SoA``) of its six output body planes, by autograd of
+    the plain ops.  Returns ``(ds, dtx, dty)``: ``ds`` an ``_SoA``, and the
+    terrain planes' cotangents stacked as the kernel takes the planes,
+    ``[k * MAX_VERTS, B]`` in ``sorted(terrain_override)`` order (no rows
+    without an override)."""
+    override = terrain_override or {}
+    tparts = tuple(sorted(override))
+    with torch.enable_grad():
+        s_in = type(s)(*(x.detach().requires_grad_(True) for x in s))
+        tx, ty = (x.detach().requires_grad_(True)
+                  for x in _terrain_planes(override, tparts, s.px))
+        out, _ = fused_step_plain(world, s_in, _split(tparts, tx, ty), dt, accel)
+        inputs = (*s_in, tx, ty)
+        got = torch.autograd.grad(tuple(out), inputs, tuple(grads), allow_unused=True)
+    got = [torch.zeros_like(x) if g is None else g for g, x in zip(got, inputs)]
+    return type(s)(*got[:6]), got[6], got[7]
+
+
+def _terrain_planes(override, tparts, like):
+    """The override parts' x and y planes, concatenated in ``tparts`` order
+    into the kernel's ``[k * MAX_VERTS, B]`` layout (no rows when empty)."""
+    if not tparts:
+        empty = like.new_empty((0, like.shape[-1]))
+        return empty, empty
+    return (torch.cat([override[p][0] for p in tparts]),
+            torch.cat([override[p][1] for p in tparts]))
+
+
+def _split(tparts, tx, ty):
+    """The inverse of :func:`_terrain_planes`: ``{part: (x, y)}`` views."""
+    V = MAX_VERTS
+    return {p: (tx[k * V:(k + 1) * V], ty[k * V:(k + 1) * V]) for k, p in enumerate(tparts)}
+
+
 def physics_core_fused(world, s, terrain_override=None, dt=None, accel=None):
     """The fused step: the kernel on CUDA tensors, the plain version on CPU
     tensors.  ``terrain_override`` is ``{part: ([MAX_VERTS, B] x, y)}`` of
     world-frame vertex planes.  Returns ``(_SoA, ContactsBM)``."""
+    from parallax_tpu_torch.ops.contact_solver import _check
+
     device = s.px.device
     if device.type == "cpu":
         return fused_step_plain(world, s, terrain_override, dt, accel)
@@ -165,20 +210,56 @@ def physics_core_fused(world, s, terrain_override=None, dt=None, accel=None):
         raise ValueError(f"fused step: no kernel for device {device}")
     check_fused_step(world)
     override = terrain_override or {}
-    inputs = (*s, *(x for xy in override.values() for x in xy))
-    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
-        raise NotImplementedError(
-            "the fused step kernel has no reverse pass yet (ROADMAP Queue 2 "
-            "item 4); train with use_cuda_fused=False"
-        )
-    return _step_cuda(world, s, override, dt, accel)
+    tparts = tuple(sorted(override))
+    for p in tparts:
+        for name, x in zip(("x", "y"), override[p]):
+            _check(f"terrain_override[{p}] {name}", x, (MAX_VERTS, s.px.shape[-1]),
+                   torch.float32, device)
+    tx, ty = _terrain_planes(override, tparts, s.px)
+    statics = (world, tparts, dt, accel)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (*s, tx, ty)):
+        *out, active = _FusedStep.apply(statics, tx, ty, *s)
+        return type(s)(*out), _exported(active)
+    out, active = _step_cuda(statics, s, tx, ty)
+    return out, _exported(active)
 
 
-def _step_cuda(world, s, override, dt, accel):
-    global launches
+class _FusedStep(torch.autograd.Function):
+    """The fused step on CUDA tensors under autograd: the forward kernel, and
+    the reverse-pass kernel as its backward.  It saves the primal inputs
+    only (the TPU path's residual policy); the backward recomputes the
+    rest.  The terrain planes enter concatenated, so ``torch.cat``'s
+    backward routes their cotangents to each part.  ``active`` takes no
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, statics, tx, ty, *body):
+        from parallax_tpu_torch.engine.batched import _SoA
+
+        out, active = _step_cuda(statics, _SoA(*body), tx, ty)
+        ctx.statics = statics
+        ctx.save_for_backward(tx, ty, *body)
+        ctx.mark_non_differentiable(active)
+        return (*out, active)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        from parallax_tpu_torch.engine.batched import _SoA
+
+        tx, ty, *body = ctx.saved_tensors
+        ds, dtx, dty = _fused_bwd_cuda(ctx.statics, _SoA(*body), tx, ty, _SoA(*grads[:6]))
+        return (None, dtx, dty, *ds)
+
+
+def _launch_operands(statics, s, tx, ty):
+    """Check the planes and the world; return the library, the pointers of
+    the kernels' static operands, the scalar arguments both kernels end
+    with, and the shapes."""
     from parallax_tpu_torch.ops import _build
     from parallax_tpu_torch.ops.contact_solver import _check, _ptr, _tail, solver_operands
 
+    world, tparts, dt, accel = statics
     lib = _build.load()
     cfg = world.config
     device = s.px.device
@@ -191,15 +272,8 @@ def _step_cuda(world, s, override, dt, accel):
         raise ValueError(f"fused step kernel: {P} parts, at most {lib.fused_step_max_parts()}")
     for name, x in zip(s._fields, s):
         _check(name, x, (n, B), torch.float32, device)
-    tparts = sorted(override)
-    for p in tparts:
-        for name, x in zip(("x", "y"), override[p]):
-            _check(f"terrain_override[{p}] {name}", x, (MAX_VERTS, B), torch.float32, device)
-    if tparts:
-        tx = torch.cat([override[p][0] for p in tparts])
-        ty = torch.cat([override[p][1] for p in tparts])
-    else:
-        tx = ty = torch.empty((0, B), dtype=torch.float32, device=device)
+    for name, x in (("terrain x", tx), ("terrain y", ty)):
+        _check(name, x, (len(tparts) * MAX_VERTS, B), torch.float32, device)
     sops = solver_operands(world, cfg.contact)
     fops = fused_operands(world)
     for name, x in (*zip(sops._fields, sops), *zip(fops._fields, fops)):
@@ -210,27 +284,78 @@ def _step_cuda(world, s, override, dt, accel):
     gx, gy = cfg.gravity
     if accel is not None:
         gx, gy = gx + accel[0], gy + accel[1]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    scalars = (
+        P, len(fops.pair_i), MAX_VERTS, sum(1 << p for p in tparts),
+        int(cfg.integrator == "symplectic"), float(gx * dt), float(gy * dt),
+        *_tail(world, cfg.solver_iterations, cfg.position_iterations, dt, cfg.contact,
+               B, C, n, stream),
+    )
+    operands = (*(_ptr(x) for x in fops), *(_ptr(x) for x in sops))
+    return lib, operands, scalars, (C, n, B)
+
+
+def _step_cuda(statics, s, tx, ty):
+    global launches
+    from parallax_tpu_torch.ops.contact_solver import _ptr
+
+    lib, operands, scalars, (C, n, B) = _launch_operands(statics, s, tx, ty)
+    device = s.px.device
     outs = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
     active = torch.empty((C, B), dtype=torch.bool, device=device)
     geo = torch.empty((4, C, B), dtype=torch.float32, device=device)
     scratch = torch.empty(
         (lib.contact_solver_num_fields(), C, B), dtype=torch.float32, device=device
     )
-    stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.fused_step_fwd(
         *(_ptr(x) for x in s), _ptr(tx), _ptr(ty),
         *(_ptr(x) for x in outs), _ptr(active),
-        *(_ptr(x) for x in fops),
-        *(_ptr(x) for x in sops),
-        _ptr(geo), _ptr(scratch),
-        P, len(fops.pair_i), MAX_VERTS, sum(1 << p for p in tparts),
-        int(cfg.integrator == "symplectic"), float(gx * dt), float(gy * dt),
-        *_tail(world, cfg.solver_iterations, cfg.position_iterations, dt, cfg.contact,
-               B, C, n, stream),
+        *operands, _ptr(geo), _ptr(scratch), *scalars,
     )
     if err != 0:
         raise RuntimeError(f"fused_step_fwd launch failed: CUDA error {err}")
     launches += 1
-    return s._replace(
-        px=outs[0], py=outs[1], vx=outs[2], vy=outs[3], angle=outs[4], omega=outs[5]
-    ), _exported(active)
+    return type(s)(*outs), active
+
+
+def fused_step_bwd(world, s, terrain_override, grads, dt=None, accel=None):
+    """The reverse-pass kernel on CUDA tensors, the plain version on CPU
+    tensors: the VJP of :func:`physics_core_fused`'s body planes at ``(s,
+    terrain_override)`` for their cotangents ``grads``.  Returns ``(ds,
+    dtx, dty)`` as :func:`fused_step_bwd_plain` does."""
+    device = s.px.device
+    if device.type == "cpu":
+        return fused_step_bwd_plain(world, s, terrain_override, grads, dt, accel)
+    if device.type != "cuda":
+        raise ValueError(f"fused step: no kernel for device {device}")
+    check_fused_step(world)
+    override = terrain_override or {}
+    tparts = tuple(sorted(override))
+    tx, ty = _terrain_planes(override, tparts, s.px)
+    return _fused_bwd_cuda((world, tparts, dt, accel), s, tx, ty, grads)
+
+
+def _fused_bwd_cuda(statics, s, tx, ty, grads):
+    global bwd_launches
+    from parallax_tpu_torch.ops.contact_solver import _check, _ptr
+
+    lib, operands, scalars, (C, n, B) = _launch_operands(statics, s, tx, ty)
+    device = s.px.device
+    grads = [g.contiguous() for g in grads]
+    for name, g in zip(s._fields, grads):
+        _check(f"cotangent {name}", g, (n, B), torch.float32, device)
+    ds = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
+    dtx, dty = torch.empty_like(tx), torch.empty_like(ty)
+    cfg = statics[0].config
+    rows = lib.fused_step_bwd_scratch_rows(C, n, cfg.solver_iterations, cfg.position_iterations)
+    scratch = torch.empty((rows, B), dtype=torch.float32, device=device)
+    err = lib.fused_step_bwd(
+        *(_ptr(x) for x in s), _ptr(tx), _ptr(ty),
+        *(_ptr(g) for g in grads),
+        *(_ptr(x) for x in ds), _ptr(dtx), _ptr(dty),
+        *operands, _ptr(scratch), *scalars,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_step_bwd launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return type(s)(*ds), dtx, dty

@@ -265,25 +265,81 @@ def test_fused_wrapper_refuses_bad_inputs_on_card(cuda_env, fused_env):
 
 
 @pytest.mark.cuda
-def test_fused_step_under_autograd_raises_on_card(fused_env):
+def test_fused_step_under_autograd_runs_the_reverse_pass_on_card(fused_env):
+    """Under autograd the fused step runs through ``_FusedStep``: one forward
+    launch, then one reverse-pass launch on ``backward()``, and ``active``
+    carries no gradient.  Under ``no_grad`` nothing of the backward is
+    recorded."""
     st = fused_env.reset_fn_batch(_keys(256, 9))
     s = tb._to_soa(st.bodies)
     override = _override(fused_env, st)
-    before = fused_step.launches
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        fused_step.physics_core_fused(
-            fused_env.world, s._replace(vy=s.vy.clone().requires_grad_(True)), override
-        )
-    w = torch.zeros((9, 2), device="cuda", requires_grad=True)
+    f0, b0 = fused_step.launches, fused_step.bwd_launches
+    vy = s.vy.clone().requires_grad_(True)
+    out, con = fused_step.physics_core_fused(fused_env.world, s._replace(vy=vy), override)
+    assert fused_step.launches == f0 + 1 and fused_step.bwd_launches == b0
+    assert out.py.grad_fn is not None and not con.active.requires_grad
+    (out.py.sum() + out.vy.sum()).backward()
+    torch.cuda.synchronize()
+    assert fused_step.bwd_launches == b0 + 1
+    assert torch.isfinite(vy.grad).all() and vy.grad.abs().max() > 0
+    with torch.no_grad():
+        out, _ = fused_step.physics_core_fused(fused_env.world, s._replace(vy=vy), override)
+    assert out.py.grad_fn is None
+    assert fused_step.launches == f0 + 2 and fused_step.bwd_launches == b0 + 1
+
+
+@pytest.mark.cuda
+def test_fused_bwd_kernel_matches_plain_vjp_on_card(cuda_env, fused_env):
+    """The fused step's reverse-pass kernel against autograd of its plain
+    version on the same CUDA tensors, at B=1024 on the contact scenario,
+    with the terrain tilted by a slope of 0.05 so that its x cotangent is
+    not zero (as in tests/test_torch_fused_step.py): every plane within rtol
+    2e-4, atol 1e-5, and alive."""
+    st, s, _ = _contact_scenario(cuda_env, 1024)
+    override = {p: (x, y + 0.05 * x) for p, (x, y) in _override(fused_env, st).items()}
+    rng = np.random.default_rng(5)
+    cot = tb._SoA(*(torch.from_numpy(rng.standard_normal(s.px.shape).astype(np.float32)).cuda()
+                    for _ in range(6)))
+    before = fused_step.bwd_launches
+    got = fused_step.fused_step_bwd(fused_env.world, s, override, cot)
+    assert fused_step.bwd_launches == before + 1
+    want = fused_step.fused_step_bwd_plain(fused_env.world, s, override, cot)
+    torch.cuda.synchronize()
+    for x, y in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+        assert torch.isfinite(x).all() and x.abs().max() > 0
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_fused_train_step_on_card_runs_the_fused_kernels_only(fused_env):
+    """A train step through the fused step at small B: per step of the
+    horizon one fused launch in the forward and one in the checkpoint
+    recompute, one reverse-pass launch, and no launch of the solver's
+    kernels; the policy gradients are finite and nonzero."""
+    st, _, _ = _contact_scenario(fused_env, 256)
+    rng = np.random.default_rng(0)
+    params = {
+        "w1": torch.tensor(rng.standard_normal((9, 32)) * 0.3, dtype=torch.float32),
+        "b1": torch.zeros(32),
+        "w2": torch.tensor(rng.standard_normal((32, 2)) * 0.1, dtype=torch.float32),
+        "b2": torch.zeros(2),
+    }
+    params = {k: v.cuda().requires_grad_(True) for k, v in params.items()}
 
     def policy(p, obs):
-        return torch.tanh(obs @ p)
+        return torch.tanh(torch.tanh(obs @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"])
 
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        rollout.make_loss_fn(fused_env, policy, 2)(w, st)
-    assert fused_step.launches == before
-    with torch.no_grad():
-        fused_step.physics_core_fused(
-            fused_env.world, s._replace(vy=s.vy.clone().requires_grad_(True)), override
-        )
-    assert fused_step.launches == before + 1
+    h = 6
+    loss_fn = rollout.make_loss_fn(fused_env, policy, h, checkpoint_segments=2)
+    counts = (fused_step.launches, fused_step.bwd_launches,
+              contact_solver.launches, contact_solver.bwd_launches)
+    loss, _ = loss_fn(params, st)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    f, b, sf, sb = (x - y for x, y in zip(
+        (fused_step.launches, fused_step.bwd_launches,
+         contact_solver.launches, contact_solver.bwd_launches), counts))
+    assert (f, b, sf, sb) == (2 * h, h, 0, 0)
+    assert torch.isfinite(loss)
+    for g in grads:
+        assert torch.isfinite(g).all() and g.abs().max() > 0
