@@ -22,7 +22,12 @@ the card agrees with the same run on the CPU:
   pass in the backward;
 * the fused train step: the same over the fused world; it runs the fused
   step's kernel in the forward and the recompute, and its reverse pass in
-  the backward, and neither solver kernel.
+  the backward, and neither solver kernel;
+* the circle worlds at B=8192: ``Bouncer()`` and ``Billiards()`` rollouts on
+  the split step (the contact-solve kernel), ``BilliardsConfig(n_object=47)``
+  on the split step with its peak memory, and
+  ``BilliardsConfig(use_cuda_fused=True)`` on the fused step (its circle-circle
+  and circle-box lanes, and no solver launch).
 
 It prints the card's name and power limit, the timings, one JSON line of
 per-kernel results and, last, one JSON line ``{"ok": true, "device":
@@ -49,6 +54,7 @@ SMALL_B, SMALL_STEPS = 1024, 60
 CPU_ATOL = 1e-3  # card vs CPU rollout after 60 steps (rounding grows with steps)
 CPU_DONE_SHARE = 0.99
 HORIZON, SEGMENTS = 100, 4
+CIRCLE_STEPS = 50  # the circle worlds' rollouts at B
 SMALL_H = 12
 PROFILE_H = 4  # the profiled train step: short, so its trace stays small
 # card vs CPU train step: the loss is a mean of 12 rewards that agree to
@@ -135,20 +141,21 @@ def fused_bound_ms(world, override_parts, n_active, B):
     bytes (six body planes and the terrain rows the pairs read, once; six
     body planes and the active flags written once) over the HBM rate and
     its float32 operations over the float32 rate.  Operations are counted
-    from the kernel's arithmetic: every pair runs its SAT and clip whether
-    or not it touches (edge axes 9 each; per axis the projections of both
-    polygons, 3 a vertex and 2 a min/max, then 4 to compare; 4 a vertex
-    for the reference edges; about 85 for the clip and the lanes), every
-    rotated vertex 8, every body 8 to integrate and about 40 for its
-    cosine and sine, and the solve and joints as ``solver_bound_ms``
-    counts them for the run's active lanes."""
+    from the kernel's arithmetic: every polygon pair runs its SAT and clip
+    whether or not it touches (edge axes 9 each; per axis the projections
+    of both polygons, 3 a vertex and 2 a min/max, then 4 to compare; 4 a
+    vertex for the reference edges; about 85 for the clip and the lanes),
+    every circle pair its lane (``CC_OPS``, ``CB_OPS``), every rotated
+    vertex 8, every body 8 to integrate and about 40 for its cosine and
+    sine, and the solve and joints as ``solver_bound_ms`` counts them for
+    the run's active lanes."""
     from parallax_tpu_torch.ops.fused_step import fused_operands
 
     ops_ = fused_operands(world)
     parts = ops_.part_i.tolist()
     per_world = 0
-    for _, _, va, vb, _, _ in ops_.pair_i.tolist():
-        per_world += pair_ops(va, vb)
+    for _, _, va, vb, _, _, _, kind in ops_.pair_i.tolist():
+        per_world += pair_ops(va, vb, kind)
     per_world += sum(8 * nv for p, (_, _, nv) in enumerate(parts) if p not in override_parts)
     n, C, J = world.n_bodies, world.table.n_contacts, world.joints.n_joints
     per_world += 48 * n
@@ -189,7 +196,7 @@ def fused_bwd_bound_ms(world, override_parts, n_active, touched, B):
     ) + 60 * J * B
     adjoint = sum(
         t * (pair_ops(va, vb) + 17 * (va + vb) + 160)
-        for t, (_, _, va, vb, _, _) in zip(touched, ops_.pair_i.tolist())
+        for t, (_, _, va, vb, *_) in zip(touched, ops_.pair_i.tolist())
     )
     ops = f_ops + 2 * solve_ops + adjoint
     terrain_rows = sum(parts[p][2] for p in override_parts)
@@ -199,10 +206,143 @@ def fused_bwd_bound_ms(world, override_parts, n_active, touched, B):
             nbytes, ops)
 
 
-def pair_ops(va, vb):
-    """float32 operations of one pair's SAT and clip (see fused_bound_ms)."""
+# float32 operations of one circle-circle and one circle-box lane, counted
+# from fused_step.cuh's cc_lane and cb_lane
+CC_OPS, CB_OPS = 45, 60
+
+
+def pair_ops(va, vb, kind=0):
+    """float32 operations of one pair's lanes (see fused_bound_ms): a
+    polygon pair's SAT and clip (kind 0), or a circle pair's analytic lane
+    (kind 1: cc, 2: cb)."""
+    if kind:
+        return CC_OPS if kind == 1 else CB_OPS
     A = va + vb
     return 9 * A + A * (3 * A + 2 * (A - 2) + 4) + 4 * A + 85
+
+
+def circle_params(width, device):
+    """A tanh-linear policy's weights for an env of ``width`` observations
+    (numpy, seeded)."""
+    rng = np.random.default_rng(12)
+    W = (rng.standard_normal((width, 2)) * 0.3).astype(np.float32)
+    b = (rng.standard_normal(2) * 0.3).astype(np.float32)
+    return torch.from_numpy(W).to(device), torch.from_numpy(b).to(device)
+
+
+def circle_policy(params, obs):
+    return torch.tanh(obs @ params[0] + params[1])
+
+
+def billiards_start(env, keys):
+    """Fresh racks; the cue of every fourth world heads for the top-right
+    pocket (``tests/test_billiards.py:95``), and that of the next world is
+    shot into the rack at 3 m/s with a numpy-seeded spread."""
+    st = env.reset_fn_batch(keys)
+    pos, vel = st.bodies.pos.clone(), st.bodies.vel.clone()
+    w = np.arange(keys.shape[0])
+    scratch = torch.from_numpy(w % 4 == 0).to(keys.device)
+    brk = torch.from_numpy(w % 4 == 1).to(keys.device)
+    spread = np.random.default_rng(9).standard_normal((keys.shape[0], 2)).astype(np.float32)
+    shot = torch.tensor([3.0, 0.0], device=keys.device) + 0.05 * torch.from_numpy(spread).to(
+        keys.device)
+    pos[:, 0] = torch.where(scratch[:, None], torch.tensor([0.85, 0.42], device=keys.device),
+                            pos[:, 0])
+    vel[:, 0] = torch.where(scratch[:, None], torch.tensor([1.5, 0.8], device=keys.device),
+                            torch.where(brk[:, None], shot, vel[:, 0]))
+    return st._replace(bodies=st.bodies._replace(pos=pos, vel=vel))
+
+
+def circle_worlds(env_b, gpu):
+    """Phase 5b: the circle worlds' paths at B, each with its launches,
+    env-steps/s, peak memory and the time of its layers, then billiards8
+    card against CPU.  Returns ``{path: (env-steps/s, (solver, fused
+    launches), peak GiB)}``; what the paths allocate is freed on return, so
+    later peaks do not count it."""
+    from parallax_tpu_torch.engine.batched import collide_batched
+    from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
+    from parallax_tpu_torch.envs.bouncer import Bouncer
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from parallax_tpu_torch.utils import prng
+
+    dev = torch.device("cuda")
+    circle = {}
+    paths = (
+        ("bouncer split", Bouncer(), "split"),
+        ("billiards8 split", Billiards(), "split"),
+        ("billiards8 fused", env_b, "fused"),
+        ("billiards48 split", Billiards(BilliardsConfig(n_object=47)), "split"),
+    )
+    for label, e, kind in paths:
+        cp = circle_params(e.observation_size, dev)
+        st = e.reset_fn_batch(keys_for(B, 8, dev))
+        e.rollout_batch(st, circle_policy, 2, cp)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        contact_solver.launches = fused_step.launches = 0
+        t0 = time.perf_counter()
+        _, tr = e.rollout_batch(st, circle_policy, CIRCLE_STEPS, cp)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = (contact_solver.launches, fused_step.launches)
+        want_counts = (CIRCLE_STEPS, 0) if kind == "split" else (0, CIRCLE_STEPS)
+        check(counts == want_counts, f"{label}: launches (solver, fused) {counts}, want {want_counts}")
+        check(tuple(tr.obs.shape) == (CIRCLE_STEPS, B, e.observation_size),
+              f"{label}: obs shape {tuple(tr.obs.shape)}")
+        check(torch.isfinite(tr.obs).all().item() and torch.isfinite(tr.reward).all().item(),
+              f"{label}: non-finite obs or reward")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        circle[label] = (B * CIRCLE_STEPS / sec, counts, peak)
+        print(f"[main] {label} rollout_batch B={B} x {CIRCLE_STEPS} steps ({e.world.n_bodies} "
+              f"bodies, C={e.world.table.n_contacts}): launches solver {counts[0]}, fused "
+              f"{counts[1]}, {B * CIRCLE_STEPS / sec:.1f} env-steps/s, peak memory {peak:.2f} "
+              f"GiB, on {gpu}")
+        # where a step's time goes: the step, and the layers it calls
+        ps = e._to_planes(st)
+        acts = circle_policy(cp, e.plane_obs(ps.s, ps.aux))
+        s1 = e.plane_pre(ps.s, ps.aux, acts)
+        layers = {"step (_step_planes)": lambda: e._step_planes(ps, acts),
+                  "plane_fresh (reset draw)": lambda: e.plane_fresh(prng.split(ps.key)[:, 0])}
+        if kind == "split":
+            con1 = collide_batched(e.world, s1)
+            wc = e.world.config
+            layers["collide_batched"] = lambda: collide_batched(e.world, s1)
+            layers["solve+joints kernel"] = lambda: contact_solver.solve_contacts(
+                e.world, s1, con1, wc.solver_iterations, wc.position_iterations, wc.dt,
+                wc.contact)
+        else:
+            layers["fused step kernel"] = lambda: fused_step.physics_core_fused(e.world, s1)
+        for name_, fn in layers.items():
+            cuda_ms(fn, 2)
+            print(f"[time] {label}: {name_} {cuda_ms(fn, 5):.4f} ms per call at B={B} on {gpu}")
+        del tr, ps, acts, s1, layers  # the next path's peak memory is its own
+
+    # billiards8 on the card against the CPU, split and fused: cues
+    # scratched into a pocket in a quarter of the worlds, broken into the
+    # rack in another quarter
+    for label, bcfg in (("split", BilliardsConfig()),
+                        ("fused", BilliardsConfig(use_cuda_fused=True))):
+        small = {}
+        for d in ("cuda", "cpu"):
+            e = Billiards(bcfg, device=d)
+            st = billiards_start(e, keys_for(SMALL_B, 4, d))
+            _, small[d] = e.rollout_batch(st, circle_policy, SMALL_STEPS,
+                                          circle_params(e.observation_size, d))
+        g, c = small["cuda"], small["cpu"]
+        obs_err = (g.obs.cpu() - c.obs).abs().max().item()
+        rew_err = (g.reward.cpu() - c.reward).abs().max().item()
+        done_share = (g.done.cpu() == c.done).all(0).double().mean().item()
+        dones = int(c.done.sum())
+        print(f"[check] billiards8 {label} B={SMALL_B} x {SMALL_STEPS} steps, card vs CPU: max "
+              f"|obs diff| {obs_err:.3e}, max |reward diff| {rew_err:.3e}, worlds with equal "
+              f"done sequences {done_share:.4f} ({dones} dones on the CPU)")
+        check(dones > 0, f"billiards8 {label}: no episode ended")
+        check(obs_err <= CPU_ATOL and rew_err <= CPU_ATOL,
+              f"billiards8 {label}: card vs CPU rollout differ beyond {CPU_ATOL}")
+        check(done_share >= CPU_DONE_SHARE,
+              f"billiards8 {label}: done sequences agree in {done_share} of worlds")
+
+    return circle
 
 
 def zero_policy(_, obs):
@@ -227,6 +367,74 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns(fn, plain, reps):
+    """Device times of a kernel and its plain version, in turns after a
+    warm-up: ``(best kernel ms, best plain ms, the four readings)``."""
+    for f in (fn, plain):
+        cuda_ms(f, 3)  # warm-up
+    t = [cuda_ms(f, reps) for f in (fn, plain, fn, plain)]
+    return min(t[0], t[2]), min(t[1], t[3]), t
+
+
+# the circle worlds' overlap states (tests/torch_scenarios.py): edge_x,
+# spacing, y_step, so that ball-ball and ball-wall lanes fire
+CIRCLE_OVERLAP = {"bouncer": (2.0, 0.25, 0.1), "billiards8": (1.0, 0.03, 0.02),
+                  "billiards48": (1.0, 0.03, 0.02)}
+
+
+def circle_solves(gpu):
+    """Phase 3: the solve+joints kernel against its plain version on the
+    circle worlds' split paths, at their own shapes (one lane a pair, no
+    manifold partner; billiards48 has 52 bodies and 1320 lanes), on the
+    same CUDA tensors: each world's overlap state at B through
+    ``collide_batched``.  Both cc and cb lanes must be active and every body
+    plane within ATOL.  Returns ``{world: entry}`` with the agreement, the
+    times and the bound."""
+    from parallax_tpu_torch.engine.batched import collide_batched
+    from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
+    from parallax_tpu_torch.envs.bouncer import Bouncer
+    from parallax_tpu_torch.ops import contact_solver
+    from torch_scenarios import overlap_state
+
+    out = {}
+    for label, e in (("bouncer", Bouncer()), ("billiards8", Billiards()),
+                     ("billiards48", Billiards(BilliardsConfig(n_object=47)))):
+        w, c = e.world, e.world.config
+        check([g.kernel for g in w.table.groups] == ["cc", "cb"], f"{label}'s groups")
+        s = overlap_state(e, B, 3, *CIRCLE_OVERLAP[label])
+        con = collide_batched(w, s)
+        n_cc = w.table.groups[0].size
+        cc, cb = int(con.active[:n_cc].sum()), int(con.active[n_cc:].sum())
+        check(cc > 0 and cb > 0, f"{label} scenario: {cc} cc and {cb} cb lanes active, "
+              "need both > 0")
+        args = (c.solver_iterations, c.position_iterations, c.dt, c.contact)
+        got = contact_solver.solve_contacts(w, s, con, *args)
+        want = contact_solver.solve_contacts_plain(w, s, con, *args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for f, a, b in zip(got._fields, got, want):
+            d = (a - b).abs().max().item()
+            check(np.isfinite(d) and d <= ATOL, f"solve kernel vs plain on {label}: {f} "
+                  f"differs by {d}")
+            err = max(err, d)
+        ms, plain_ms, t = turns(lambda: contact_solver.solve_contacts(w, s, con, *args),
+                                lambda: contact_solver.solve_contacts_plain(w, s, con, *args),
+                                3 if label == "billiards48" else 10)
+        n, C, J = w.n_bodies, w.table.n_contacts, w.joints.n_joints
+        bound, by = solver_bound_ms(cc + cb, B, C, n, J, c.solver_iterations,
+                                    c.position_iterations, bwd=False)
+        print(f"[kernel] contact_solve_fwd vs plain on {label} at B={B} ({n} bodies, C={C}): "
+              f"{cc} cc and {cb} cb lanes active, max |diff| {err:.3e} <= {ATOL}")
+        print(f"[time] solve+joints per call on {label} at B={B}: kernel {ms:.4f} ms, plain "
+              f"torch {plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+        print(f"[bound] solve+joints on {label} at B={B}, {cc + cb} active lanes: {bound:.5f} "
+              f"ms ({by})")
+        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "active_cc": cc, "active_cb": cb}
+        del s, con, got, want
+    return out
 
 
 def profile_train(label, loss_fn, params, states, gpu):
@@ -286,11 +494,17 @@ def main():
         "parallax_tpu_torch must come from this checkout",
     )
     from parallax_tpu_torch.engine.batched import _to_soa, collide_batched
+    from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
     from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
     from parallax_tpu_torch.ops import _build, contact_solver, fused_step
     from parallax_tpu_torch.parallel import rollout
     from parallax_tpu_torch.utils import prng
     from parallax_tpu_torch.utils.pytree import tree_map
+
+    # the scenarios the card tests share (tests/torch_scenarios.py: torch and
+    # numpy only)
+    sys.path.insert(0, os.path.join(here, "tests"))
+    from torch_scenarios import overlap_state, tie_fused_case, tie_solve_case
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -367,12 +581,6 @@ def main():
     def bwd_plain_call():
         contact_solver.solve_contacts_bwd_plain(env.world, s, con, cot, *solve_args)
 
-    def turns(fn, plain, reps):
-        for f in (fn, plain):
-            cuda_ms(f, 3)  # warm-up
-        t = [cuda_ms(f, reps) for f in (fn, plain, fn, plain)]
-        return min(t[0], t[2]), min(t[1], t[3]), t
-
     kernel_ms, plain_ms, t = turns(kernel_call, plain_call, 20)
     print(f"[time] solve+joints per call at B={B}: kernel {kernel_ms:.4f} ms, "
           f"plain torch {plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
@@ -444,6 +652,71 @@ def main():
     print(f"[bound] fused reverse pass at B={B}, {sum(touched)} pairs touching: "
           f"{fb_bound:.5f} ms ({fb_by}; {fb_bytes / 1e6:.2f} MB, {fb_ops / 1e6:.1f} M float32 "
           f"operations)")
+
+    # the clamp-tie cases (tests/test_torch_clamp_ties.py) through both
+    # reverse kernels against their plain VJPs
+    ts, tcon, tcot = tie_solve_case(env, dev)
+    got = contact_solver.solve_contacts_bwd(env.world, ts, tcon, tcot, *solve_args)
+    want = contact_solver.solve_contacts_bwd_plain(env.world, ts, tcon, tcot, *solve_args)
+    fs, fov, fcot = tie_fused_case(env_f, dev)
+    fgot = fused_step.fused_step_bwd(env_f.world, fs, fov, fcot)
+    fwant = fused_step.fused_step_bwd_plain(env_f.world, fs, fov, fcot)
+    torch.cuda.synchronize()
+    tie_errs = []
+    for label, g_, w_ in (("contact_solve_bwd", got, want), ("fused_step_bwd", fgot, fwant)):
+        err_max = 0.0
+        for a, b in zip((*g_[0], *g_[1:]), (*w_[0], *w_[1:])):
+            err = (a - b).abs()
+            check(torch.isfinite(a).all().item(), f"{label} at a clamp tie: non-finite")
+            check((err <= ATOL + RTOL * b.abs()).all().item(),
+                  f"{label} at a clamp tie vs plain VJP: differs by {err.max().item()}")
+            err_max = max(err_max, err.max().item())
+        check(g_[0].vy.abs().max().item() > 0.1, f"{label} at a clamp tie: dead hull vy")
+        tie_errs.append(err_max)
+    bwd_err, fbwd_err = max(bwd_err, tie_errs[0]), max(fbwd_err, tie_errs[1])
+    print(f"[kernel] clamp-tie cases (B=1, one lane at rest under the slop): contact_solve_bwd "
+          f"max |diff| {tie_errs[0]:.3e}, fused_step_bwd max |diff| {tie_errs[1]:.3e} vs their "
+          f"plain VJPs (rtol {RTOL}, atol {ATOL})")
+
+    # the fused kernel's circle-circle and circle-box lanes: billiards8 with
+    # its balls piled against the +x cushion
+    env_b = Billiards(BilliardsConfig(use_cuda_fused=True))
+    sb = overlap_state(env_b, B, 3, 1.0, 0.03, 0.02)
+    got_s, got_c = fused_step.physics_core_fused(env_b.world, sb)
+    want_s, want_c = fused_step.fused_step_plain(env_b.world, sb)
+    torch.cuda.synchronize()
+    check([g.kernel for g in env_b.world.table.groups] == ["cc", "cb"], "billiards8's groups")
+    n_cc = env_b.world.table.groups[0].size
+    cc_active, cb_active = int(want_c.active[:n_cc].sum()), int(want_c.active[n_cc:].sum())
+    check(cc_active > 0 and cb_active > 0, f"billiards8 scenario: {cc_active} cc and "
+          f"{cb_active} cb lanes active, need both > 0")
+    check(torch.equal(got_c.active, want_c.active),
+          f"fused cc/cb lanes vs plain: {int((got_c.active != want_c.active).sum())} flags differ")
+    b_err = 0.0
+    for f, a, b in zip(got_s._fields, got_s, want_s):
+        err = (a - b).abs().max().item()
+        check(np.isfinite(err) and err <= ATOL, f"fused cc/cb lanes vs plain: {f} differs by {err}")
+        b_err = max(b_err, err)
+    print(f"[kernel] fused_step_fwd (cc, cb lanes) vs plain on billiards8 at B={B}: {cc_active} cc "
+          f"and {cb_active} cb lanes active, flags identical, max |diff| {b_err:.3e} <= {ATOL}")
+    fused_err = max(fused_err, b_err)
+
+    def b_call():
+        fused_step.physics_core_fused(env_b.world, sb)
+
+    def b_plain_call():
+        fused_step.fused_step_plain(env_b.world, sb)
+
+    b_ms, b_plain_ms, t = turns(b_call, b_plain_call, 20)
+    print(f"[time] fused step per call on billiards8 at B={B}: kernel {b_ms:.4f} ms, plain "
+          f"torch {b_plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+    b_bound, b_by, b_bytes, b_ops = fused_bound_ms(env_b.world, [], cc_active + cb_active, B)
+    print(f"[bound] fused step on billiards8 at B={B}, {cc_active + cb_active} active lanes: "
+          f"{b_bound:.5f} ms ({b_by}; {b_bytes / 1e6:.2f} MB, {b_ops / 1e6:.1f} M float32 "
+          f"operations)")
+
+    solves = circle_solves(gpu)
+    max_err = max([max_err] + [v["max_abs_err"] for v in solves.values()])
 
     lap("phase 4 starts")
     # -- phase 4: the rollout path ---------------------------------------------------
@@ -562,6 +835,10 @@ def main():
         cuda_ms(fn, 3)
         print(f"[time] {label}: {cuda_ms(fn, 10):.4f} ms per call at B={B} on {gpu}")
 
+    lap("phase 5b starts")
+    # -- phase 5b: the circle worlds' paths -----------------------------------------
+    circle = circle_worlds(env_b, gpu)
+
     lap("phase 6 starts")
     # -- phase 6: the train path, card against CPU ----------------------------------
     # the contact state, made on the card; both runs start from it
@@ -655,13 +932,15 @@ def main():
             "route": "cuda",
             "source": "parallax_tpu_torch/csrc/contact_solver.cu",
             "replaces": "parallax_tpu/ops/pallas_solver.py:581",
-            "launches": launches,
+            # the lander's rollout and the circle worlds' split rollouts
+            "launches": launches + sum(circle[f"{k} split"][1][0] for k in solves),
             "max_abs_err": max_err,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": fwd_bound,
             "bound_by": fwd_by,
             "library_ms": None,
+            **{k: {"launches": circle[f"{k} split"][1][0], **v} for k, v in solves.items()},
         },
         {
             "name": "contact_solve_bwd",
@@ -681,13 +960,23 @@ def main():
             "route": "cuda",
             "source": "parallax_tpu_torch/csrc/fused_step.cu",
             "replaces": "parallax_tpu/ops/pallas_step.py:473",
-            "launches": fused_launches,
+            "lanes": ["pp", "cc", "cb"],
+            # the lander's fused rollout (pp) and billiards8's (cc, cb)
+            "launches": fused_launches + circle["billiards8 fused"][1][1],
             "max_abs_err": fused_err,
             "ms": fused_ms,
             "plain_ms": fused_plain_ms,
             "bound_ms": f_bound,
             "bound_by": f_by,
             "library_ms": None,
+            "billiards8": {
+                "launches": circle["billiards8 fused"][1][1],
+                "max_abs_err": b_err,
+                "ms": b_ms,
+                "plain_ms": b_plain_ms,
+                "bound_ms": b_bound,
+                "bound_by": b_by,
+            },
         },
         {
             "name": "fused_step_bwd",

@@ -1,9 +1,10 @@
 """parallax_tpu_torch: the PyTorch and CUDA port of parallax_tpu.
 
 The JAX package ``parallax_tpu`` is the reference; this package mirrors its
-module paths and public names for the slice ported so far: the
-LunarLander batched plane-space rollout (``envs.lunar_lander``), the
-batch-minor physics step (``engine.batched``) and the contact-solver
-kernel for NVIDIA Hopper (``ops.contact_solver``, ``csrc/``).  It imports
+module paths and public names for the slice ported so far: the batched
+plane-space rollouts of LunarLander, Bouncer and Billiards (``envs``), the
+train step over them (``parallel.rollout``), the batch-minor physics step
+(``engine.batched``), and the contact-solver and fused-step kernels for
+NVIDIA Hopper with their reverse passes (``ops``, ``csrc/``).  It imports
 torch and numpy, never jax.
 """

@@ -11,10 +11,12 @@
 //
 // The Pallas kernel took this VJP from jax.vjp inside the kernel.  CUDA has
 // no autodiff, so the reverse pass is written out by hand, and it follows
-// torch's autograd of the plain version rule for rule: torch.clamp passes
-// the whole cotangent at a tie, torch.maximum/minimum split it half and
-// half, a `where` passes nothing into the branch it did not take, and a
-// masked (inactive) lane takes nothing.
+// torch's autograd of the plain version rule for rule: every clamp of the
+// plain version is torch.maximum/minimum against a constant (jnp.maximum,
+// jnp.minimum and jnp.clip in the JAX package), which splits the cotangent
+// half and half at a tie and passes it whole to a NaN operand; a `where`
+// passes nothing into the branch it did not take, and a masked (inactive)
+// lane takes nothing.
 //
 // Design: (a) each thread recomputes its world's forward from the primal
 // inputs with the forward kernel's own passes (contact_solver.cuh), and

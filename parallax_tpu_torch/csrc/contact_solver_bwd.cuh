@@ -310,8 +310,9 @@ struct Reverse {
       float g_dpx = g_jx * kp, g_dpy = g_jy * kp;
       float g_dvx = g_jx * kd * s, g_dvy = g_jy * kd * s;
       float g_s = g_jx * kd * dvx_ + g_jy * kd * dvy_;
-      if (d >= 1e-30f) {
-        float g_d = g_s / (2.0f * dvn);
+      if (!(d < 1e-30f)) {  // dvn = sqrt(max(d, 1e-30))
+        float g_d, g_floor;
+        max_bwd(d, 1e-30f, g_s / (2.0f * dvn), g_d, g_floor);
         g_dvx += 2.0f * dvx_ * g_d;
         g_dvy += 2.0f * dvy_ * g_d;
       }
@@ -360,10 +361,13 @@ struct Reverse {
         float rhs = v_n + w.f(F_BIAS, c);
         float k_n = w.f(F_KN, c);
         float inv_kn = safe_inv(k_n);
-        if (pj + rhs * inv_kn >= 0.0f) {
-          g_old += G;
-          float g_rhs = G * inv_kn;
-          inv_bwd(k_n, inv_kn, G * rhs, g(G_KN, c));
+        float x = pj + rhs * inv_kn;
+        if (!(x < 0.0f)) {  // pj_new = max(x, 0)
+          float gx, g0;
+          max_bwd(x, 0.0f, G, gx, g0);
+          g_old += gx;
+          float g_rhs = gx * inv_kn;
+          inv_bwd(k_n, inv_kn, gx * rhs, g(G_KN, c));
           g(G_BIAS, c) += g_rhs;
           rel_vel_bwd(c, ux, uy, uw, g_rhs, 0.0f, hx, hy, hw);
         }
@@ -513,10 +517,13 @@ struct Reverse {
       float k_n = w.f(F_KN, c);
       float inv_kn = safe_inv(k_n);
       if (!blk) {
-        if (w.act(c) && jn + rhs * inv_kn >= 0.0f) {
-          g_old += G;
-          float g_rhs = G * inv_kn;
-          inv_bwd(k_n, inv_kn, G * rhs, g(G_KN, c));
+        float x = jn + rhs * inv_kn;
+        if (w.act(c) && !(x < 0.0f)) {  // jn_new = max(x, 0)
+          float gx, g0;
+          max_bwd(x, 0.0f, G, gx, g0);
+          g_old += gx;
+          float g_rhs = gx * inv_kn;
+          inv_bwd(k_n, inv_kn, gx * rhs, g(G_KN, c));
           g(G_TARGET, c) += g_rhs;
           rel_vel_bwd(c, ux, uy, uw, g_rhs, 0.0f, hx, hy, hw);
         }
@@ -564,16 +571,22 @@ struct Reverse {
         g_knp -= gN1 * b0;
         g_b0 -= gN1 * k_np;
       } else if (ok_c2) {
-        if (b0 * inv_kn >= 0.0f) {
-          g_b0 += G * inv_kn;
-          g_inv_kn += G * b0;
+        float x = b0 * inv_kn;
+        if (!(x < 0.0f)) {  // x0_c2 = max(x, 0)
+          float gx, g0;
+          max_bwd(x, 0.0f, G, gx, g0);
+          g_b0 += gx * inv_kn;
+          g_inv_kn += gx * b0;
         }
       } else {
         float x1_c3 = maxp(b1 * inv_kp, 0.0f);
         bool ok_c3 = k_np * x1_c3 - b0 >= -1e-9f;
-        if (ok_c3 && b1 * inv_kp >= 0.0f) {
-          g_b1 += G_p * inv_kp;
-          g_inv_kp += G_p * b1;
+        float x = b1 * inv_kp;
+        if (ok_c3 && !(x < 0.0f)) {  // x1_c3 = max(x, 0)
+          float gx, g0;
+          max_bwd(x, 0.0f, G_p, gx, g0);
+          g_b1 += gx * inv_kp;
+          g_inv_kp += gx * b1;
         }
       }
       inv_bwd(k_n, inv_kn, g_inv_kn, g_kn);
@@ -660,12 +673,15 @@ struct Reverse {
       float d2 = pen_x * pen_x + pen_y * pen_y;
       float inv_d = rsqrtf(d2 <= 0.0f ? 1.0f : d2);
       float depth = d2 * inv_d;
-      if (a.has_max_bias) {
+      float g_floor;
+      if (a.has_max_bias) {  // bias = min(bias, max_bias)
         float bias = a.baumgarte * maxp(depth - a.slop, 0.0f) / a.baumgarte_dt;
-        if (!(bias <= a.max_bias)) g_bias = 0.0f;
+        min_bwd(bias, a.max_bias, g_bias, g_bias, g_floor);
       }
-      float g_depth = depth - a.slop >= 0.0f
-                          ? g_bias / a.baumgarte_dt * a.baumgarte : 0.0f;
+      // bias = baumgarte * max(depth - slop, 0) / baumgarte_dt
+      float g_depth;
+      max_bwd(depth - a.slop, 0.0f, g_bias / a.baumgarte_dt * a.baumgarte,
+              g_depth, g_floor);
       float gnx = g(G_NX, c), gny = g(G_NY, c);
       float g_inv_d = g_depth * d2;
       if (d2 != 0.0f) g_inv_d += gnx * pen_x + gny * pen_y;

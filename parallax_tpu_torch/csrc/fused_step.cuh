@@ -1,10 +1,11 @@
 // Device code shared by the fused step (fused_step.cu) and its reverse pass
 // (fused_step_bwd.cu), one CUDA thread per world: integration and gravity,
-// the world-frame vertices, and each polygon pair's SAT and reference-face
-// clip.  The reverse pass recomputes the step with exactly this code, so
-// its SAT decisions (best axis, sign, reference edge, clip cuts, kept
-// points) are the forward kernel's to the bit.  See fused_step.cu for what
-// it computes and the rules it follows.
+// the world-frame vertices, each polygon pair's SAT and reference-face clip,
+// and each circle-circle and circle-box pair's analytic lane.  The reverse
+// pass recomputes the step with exactly this code, so its SAT decisions
+// (best axis, sign, reference edge, clip cuts, kept points) are the forward
+// kernel's to the bit.  See fused_step.cu for what it computes and the
+// rules it follows.
 
 #pragma once
 
@@ -14,20 +15,24 @@
 
 namespace {
 
-constexpr int MAX_PARTS = 16;
+constexpr int MAX_PARTS = 16;  // ops/fused_step.py MAX_PARTS
 constexpr int MAX_V = 8;  // geometry/shapes.py MAX_VERTS
 constexpr int MAX_AXES = 2 * MAX_V;
 
 // columns of part_i [P, PART_COLS] and pair_i [npairs, PAIR_COLS]
 enum PartCol { P_BODY, P_ROTATE, P_NV, PART_COLS };
-enum PairCol { Q_A, Q_B, Q_VA, Q_VB, Q_MASK_A, Q_MASK_B, PAIR_COLS };
+enum PairCol { Q_A, Q_B, Q_VA, Q_VB, Q_MASK_A, Q_MASK_B, Q_LANE, Q_KIND, PAIR_COLS };
+// pair kinds (pair_i's Q_KIND): two SAT lanes, or one analytic lane
+enum PairKind { K_PP, K_CC, K_CB };
 
 struct StepArgs {
   const float *px, *py, *vx, *vy, *ang, *om;  // [n, B] before the step
   const float *tx, *ty;  // [k * V, B]: the k-th overridden part's rows
   const int32_t* part_i;  // owning body, rotates (0/1), vertices in use
   const float* part_lv;  // [P, V, 2] local vertices, repeat-padded
-  const int32_t* pair_i;  // parts a, b; trimmed Va, Vb; edge-mask bits
+  const int32_t* pair_i;  // parts a, b; trimmed Va, Vb; edge-mask bits;
+                          // first lane; kind
+  const float* pair_f;  // [npairs, 2]: radii of parts a and b
   float* geo;  // [4, C, B] scratch: pen_x, pen_y, pt_x, pt_y
   uint8_t* active;  // [C, B]
   int P, npairs, V, override_bits, symplectic;
@@ -213,6 +218,80 @@ struct PairSat {
   }
 };
 
+// one analytic contact lane
+struct Lane {
+  float pen_x, pen_y, pt_x, pt_y;
+  bool active;
+};
+
+// circle A against circle B (engine/batched.py:_cc_bm): penetration along
+// the centre line, depth max(ra + rb - dist, 0), the contact point midway
+// between the surfaces, or at the inner centre when one circle holds the
+// other's centre
+__device__ Lane cc_lane(float cax, float cay, float ra, float cbx, float cby,
+                        float rb) {
+  const float dx = cax - cbx, dy = cay - cby;
+  const float d2 = dx * dx + dy * dy;
+  const float inv = rsqrtf(d2 <= 0.0f ? 1.0f : d2);
+  const float dist = d2 * inv;  // |d| (0 when coincident)
+  const float ux = d2 == 0.0f ? 1.0f : dx * inv;
+  const float uy = d2 == 0.0f ? 0.0f : dy * inv;
+  const float rsum = ra + rb;
+  const float depth = maxp(rsum - dist, 0.0f);
+  const bool active = dist <= rsum;
+  float ptx = (cbx + ux * (rb - ra) + cax) / 2.0f;
+  float pty = (cby + uy * (rb - ra) + cay) / 2.0f;
+  const bool same_side =
+      (cax - ptx) * (cbx - ptx) + (cay - pty) * (cby - pty) > 0.0f;
+  const float ex = cbx - cax, ey = cby - cay;
+  const float rin = ra + 1e-6f;
+  const bool b_in_a = ex * ex + ey * ey <= rin * rin;
+  if (same_side) {
+    ptx = b_in_a ? cbx : cax;
+    pty = b_in_a ? cby : cay;
+  }
+  const float m = active ? 1.0f : 0.0f;
+  return {ux * depth * m, uy * depth * m, ptx, pty, active};
+}
+
+// circle against the axis-aligned box [lb, ub] (engine/batched.py:_cb_bm):
+// the centre clamped into the box; at a corner (within eps on both axes)
+// the push runs along the corner's direction, else along the face of least
+// shift, the earliest of s0..s3 winning a tie
+__device__ Lane cb_lane(float cx, float cy, float r, float lbx, float lby,
+                        float ubx, float uby) {
+  const float eps = 1e-6f;
+  const float ccx = minp(maxp(cx, lbx), ubx);
+  const float ccy = minp(maxp(cy, lby), uby);
+  const bool at_x = fabsf(ccx - lbx) < eps || fabsf(ccx - ubx) < eps;
+  const bool at_y = fabsf(ccy - lby) < eps || fabsf(ccy - uby) < eps;
+  const bool perfect_vertex = at_x && at_y;
+  const float dvx = ccx - cx, dvy = ccy - cy;
+  const float dd = dvx * dvx + dvy * dvy;
+  const float inv = rsqrtf(dd <= 0.0f ? 1.0f : dd);
+  const float uvx = dd == 0.0f ? 1.0f : dvx * inv;
+  const float uvy = dd == 0.0f ? 0.0f : dvy * inv;
+  const float pvx = -(cx + r * uvx - ccx);
+  const float pvy = -(cy + r * uvy - ccy);
+  const float s0 = cy + r - lby;
+  const float s1 = uby - (cy - r);
+  const float s2 = cx + r - lbx;
+  const float s3 = ubx - (cx - r);
+  const float best = minp(minp(s0, s1), minp(s2, s3));
+  const bool is0 = best == s0;
+  const bool is1 = !is0 && best == s1;
+  const bool is2 = !is0 && !is1 && best == s2;
+  const bool is3 = !is0 && !is1 && !is2;
+  const float pfx = is2 ? -s2 : (is3 ? s3 : 0.0f);
+  const float pfy = is0 ? -s0 : (is1 ? s1 : 0.0f);
+  const float ox = cx - ccx, oy = cy - ccy;
+  const float reps = r + eps;
+  const bool active = ox * ox + oy * oy <= reps * reps;
+  const float m = active ? 1.0f : 0.0f;
+  return {(perfect_vertex ? pvx : pfx) * m, (perfect_vertex ? pvy : pfy) * m,
+          ccx, ccy, active};
+}
+
 // integration and gravity of world b's bodies, written to the planes
 // args.o*; the poses stay in qx, qy and the cosine and sine of the angle,
 // for the vertices
@@ -285,18 +364,33 @@ __device__ void world_vertices(const StepArgs& st, size_t B, int b,
   }
 }
 
-// every pair's two lanes, pair-major and point-minor, into st.geo and
-// st.active
+// every pair's lanes into st.geo and st.active, from its first lane on: a
+// polygon pair's two (point-minor), a circle pair's one
 __device__ void pair_geometry(const StepArgs& st, int C, size_t B, int b,
                               const float* wx, const float* wy) {
   const size_t plane = (size_t)C * B;
   for (int q = 0; q < st.npairs; ++q) {
     const int32_t* qi = st.pair_i + q * PAIR_COLS;
     const int pa = qi[Q_A] * MAX_V, pb = qi[Q_B] * MAX_V;
+    const size_t i0 = (size_t)qi[Q_LANE] * B + b;
+    if (qi[Q_KIND] != K_PP) {
+      // a circle's centre is its row 0; a box's lb and ub its rows 0 and 1
+      const float ra = st.pair_f[2 * q], rb = st.pair_f[2 * q + 1];
+      const Lane l = qi[Q_KIND] == K_CC
+                         ? cc_lane(wx[pa], wy[pa], ra, wx[pb], wy[pb], rb)
+                         : cb_lane(wx[pa], wy[pa], ra, wx[pb], wy[pb],
+                                   wx[pb + 1], wy[pb + 1]);
+      st.geo[i0] = l.pen_x;
+      st.geo[plane + i0] = l.pen_y;
+      st.geo[2 * plane + i0] = l.pt_x;
+      st.geo[3 * plane + i0] = l.pt_y;
+      st.active[i0] = l.active;
+      continue;
+    }
     PairSat s;
     s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
           qi[Q_VB], qi[Q_MASK_B]);
-    const size_t i0 = (size_t)(2 * q) * B + b, i1 = i0 + B;
+    const size_t i1 = i0 + B;
     st.geo[i0] = s.n_x * s.ld0 * (s.a0 ? 1.0f : 0.0f);
     st.geo[i1] = s.n_x * s.ld1 * (s.a1 ? 1.0f : 0.0f);
     st.geo[plane + i0] = s.n_y * s.ld0 * (s.a0 ? 1.0f : 0.0f);

@@ -2,7 +2,9 @@
 //
 // Replaces parallax_tpu/ops/pallas_step.py:_step_bwd_kernel (l.495) on
 // NVIDIA Hopper (sm_90a), for worlds whose pair groups are all
-// polygon-polygon ("pp"), as the forward (fused_step.cu) does.  Given the
+// polygon-polygon ("pp"); the adjoints of the forward's circle-circle and
+// circle-box lanes (fused_step.cu) are not ported yet, and the launch
+// refuses a world with them (C != 2 * npairs).  Given the
 // step's primal inputs (the six [n, B] body planes before the step and the
 // terrain-override planes) and the cotangents of its six output body
 // planes, it returns the cotangents of the six input body planes and of the
@@ -15,8 +17,10 @@
 // and it follows torch's autograd of the plain version rule for rule:
 // torch.minimum/maximum split the cotangent half and half at a tie (the
 // projection chains are replayed in order, so a three-way tie splits 1/4,
-// 1/4, 1/2), torch.clamp passes the whole of it at a tie, a `where` passes
-// nothing into the branch it did not take, and of a running selection
+// 1/4, 1/2), and so do the depth's and the lane depths' floors, which are
+// torch.maximum against a constant (jnp.maximum and jnp.clip in the JAX
+// package); a `where` passes nothing into the branch it did not take, and
+// of a running selection
 // (best axis, best edge) only the last element taken receives a
 // cotangent.  Per world, in order:
 //
@@ -205,13 +209,13 @@ __device__ void pair_bwd(const PairSat& s, const float* ax, const float* ay,
   float g_ny = gl0y * s.ld0 + gl1y * s.ld1;
   const float g_ld0 = gl0x * s.n_x + gl0y * s.n_y;
   const float g_ld1 = gl1x * s.n_x + gl1y * s.n_y;
-  // ld = where(none_kept, depth, clamp(d, min=1e-6))
-  float g_depth = 0.0f, g_d0 = 0.0f, g_d1 = 0.0f;
+  // ld = where(none_kept, depth, max(d, 1e-6))
+  float g_depth = 0.0f, g_d0 = 0.0f, g_d1 = 0.0f, g_floor;
   if (s.none_kept) {
     g_depth = g_ld0 + g_ld1;
   } else {
-    if (s.d0 >= 1e-6f) g_d0 = g_ld0;
-    if (s.d1 >= 1e-6f) g_d1 = g_ld1;
+    max_bwd(s.d0, 1e-6f, g_ld0, g_d0, g_floor);
+    max_bwd(s.d1, 1e-6f, g_ld1, g_d1, g_floor);
   }
   // d = -((c - r0) . nref)
   const float h0 = -g_d0, h1 = -g_d1;
@@ -259,9 +263,10 @@ __device__ void pair_bwd(const PairSat& s, const float* ax, const float* ay,
     edge_points_bwd(s.ea, Va, g_i0x, g_i0y, g_i1x, g_i1y, gax, gay);
   }
   if (s.axis < 0) return;  // no axis taken: n and depth were constants
-  // n = N[axis] * sign; depth = clamp(best, min=0), best = ovl[axis]
+  // n = N[axis] * sign; depth = max(best, 0), best = ovl[axis]
   float g_Nx = g_nx * s.bsign, g_Ny = g_ny * s.bsign;
-  const float g_best = s.best >= 0.0f ? g_depth : 0.0f;
+  float g_best;
+  max_bwd(s.best, 0.0f, g_depth, g_best, g_floor);
   float g_op, g_on;
   min_bwd(s.o_pos, s.o_neg, g_best, g_op, g_on);
   // o_pos = max_B - min_A, o_neg = max_A - min_B
@@ -300,14 +305,14 @@ fused_step_bwd_kernel(const BwdArgs args, const StepArgs st,
   float gwx[MAX_PARTS * MAX_V], gwy[MAX_PARTS * MAX_V];
   for (int k = 0; k < st.P * MAX_V; ++k) gwx[k] = gwy[k] = 0.0f;
   for (int q = 0; q < st.npairs; ++q) {
-    const size_t i0 = (size_t)(2 * q) * B + b, i1 = i0 + B;
+    const int32_t* qi = st.pair_i + q * PAIR_COLS;
+    const size_t i0 = (size_t)qi[Q_LANE] * B + b, i1 = i0 + B;
     const float g[8] = {args.dpen_x[i0], args.dpen_x[i1], args.dpen_y[i0],
                         args.dpen_y[i1], args.dpt_x[i0],  args.dpt_x[i1],
                         args.dpt_y[i0],  args.dpt_y[i1]};
     bool any = false;
     for (int k = 0; k < 8; ++k) any = any || g[k] != 0.0f;
     if (!any) continue;
-    const int32_t* qi = st.pair_i + q * PAIR_COLS;
     const int pa = qi[Q_A] * MAX_V, pb = qi[Q_B] * MAX_V;
     PairSat s;
     s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
@@ -384,7 +389,7 @@ extern "C" int fused_step_bwd(
     float* dpx, float* dpy, float* dvx, float* dvy, float* dang, float* dom,
     float* dtx, float* dty,
     const int32_t* part_i, const float* part_lv, const int32_t* pair_i,
-    const int32_t* body_a, const int32_t* body_b, const int32_t* partner,
+    const float* pair_f, const int32_t* body_a, const int32_t* body_b, const int32_t* partner,
     const float* lane_const, const int32_t* movable,
     const float* body_im, const float* body_ii,
     const int32_t* joint_body, const float* joint_f,
@@ -394,6 +399,8 @@ extern "C" int fused_step_bwd(
     int B, int C, int n, int J, int iterations, int position_iterations,
     float dt, float baumgarte, float slop, float baumgarte_dt,
     float max_bias, int has_max_bias, void* stream) {
+  // polygon pairs only (two lanes each): the adjoints of the circle and box
+  // lanes are not here yet, and such a world is refused
   if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C != 2 * npairs ||
       B <= 0) {
     return (int)cudaErrorInvalidValue;
@@ -419,7 +426,7 @@ extern "C" int fused_step_bwd(
       gpx, gpy, gvx, gvy, gang, gom,
       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
       dgeo, dgeo + plane, dgeo + 2 * plane, dgeo + 3 * plane};
-  StepArgs st{px, py, vx, vy, ang, om, tx, ty, part_i, part_lv, pair_i,
+  StepArgs st{px, py, vx, vy, ang, om, tx, ty, part_i, part_lv, pair_i, pair_f,
               geo, flags, P, npairs, V, override_bits, symplectic,
               gdx, gdy};
   StepGrads out{dpx, dpy, dvx, dvy, dang, dom, dtx, dty};

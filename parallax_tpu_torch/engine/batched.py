@@ -19,12 +19,14 @@ autograd its reverse-pass kernel is the backward; its plain version is
 this module's split step.  Neither falls back: on CUDA tensors a world the
 fused kernel does not run raises.
 
-Not ported yet (raises ``NotImplementedError``): pair-group kernels other
-than ``pp`` (ROADMAP Queue 1 item 8).
+Pair groups: ``pp`` (the SAT manifold), ``cc`` and ``cb`` (analytic, one
+lane a pair).  Not ported yet (raises ``NotImplementedError``): ``bb``,
+``cp``, ``bp`` and the area kernels (ROADMAP Queue 1 items 8b and 8f).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -87,6 +89,29 @@ def _rsqrt_safe(x):
     return torch.rsqrt(torch.where(x <= 0, 1.0, x))
 
 
+@functools.lru_cache(maxsize=None)
+def _const(c: float, dtype: torch.dtype) -> torch.Tensor:
+    """``c`` as a 0-dim CPU tensor, made once: a CUDA op takes it as a scalar."""
+    return torch.tensor(c, dtype=dtype)
+
+
+def _max_c(x, c: float):
+    """``jnp.maximum(x, c)`` against a constant: the value and NaN of
+    ``torch.clamp(x, min=c)``, but a tie splits the cotangent half and half,
+    as in JAX (``torch.clamp`` passes all of it)."""
+    return torch.maximum(x, _const(c, x.dtype))
+
+
+def _min_c(x, c: float):
+    """``jnp.minimum(x, c)`` against a constant; see :func:`_max_c`."""
+    return torch.minimum(x, _const(c, x.dtype))
+
+
+def _clip_c(x, lo: float, hi: float):
+    """``jnp.clip(x, lo, hi)`` against constants; see :func:`_max_c`."""
+    return _min_c(_max_c(x, lo), hi)
+
+
 # ---------------------------------------------------------------------------
 # static device tables, built once per world (World.build)
 # ---------------------------------------------------------------------------
@@ -143,6 +168,26 @@ def _group_masks(world, g):
     return world.static(("group", g), build)
 
 
+def _circle_box_rows(world, g):
+    """The vertex rows a circle/box group reads on each side: a circle's
+    centre, a box's ``lb`` and ``ub`` (JAX ``engine/batched.py:644-646``)."""
+    Va = min(max(world.parts.nverts[i] for i in g.part_a), 2)
+    Vb = min(max(world.parts.nverts[i] for i in g.part_b), 2)
+    return Va, Vb
+
+
+def _radii(world, g):
+    """``[G, 1]`` radius columns of a group's two sides."""
+
+    def build():
+        r = world.parts.radius
+        ia = torch.tensor(g.part_a, device=r.device)
+        ib = torch.tensor(g.part_b, device=r.device)
+        return r[ia][:, None].contiguous(), r[ib][:, None].contiguous()
+
+    return world.static(("radii", g), build)
+
+
 def _solver_index(world) -> _SolverIndex:
     def build():
         dev = world.device
@@ -173,9 +218,13 @@ def build_static_tables(world) -> None:
     if world.config.narrowphase != "sat" or world.config.solver_mode != "block":
         return  # the batched step refuses such worlds (check_batched_support)
     for g in world.table.groups:
-        if g.kernel != "pp":
-            continue
-        Va, Vb, _, _ = _group_masks(world, g)
+        if g.kernel == "pp":
+            Va, Vb, _, _ = _group_masks(world, g)
+        elif g.kernel in ("cc", "cb"):
+            Va, Vb = _circle_box_rows(world, g)
+            _radii(world, g)
+        else:
+            continue  # collide_batched refuses the group
         _side_table(world, g.part_a, Va)
         _side_table(world, g.part_b, Vb)
     if world.table.n_contacts:
@@ -273,7 +322,7 @@ def _pp_manifold_bm(ax, ay, ema, bx, by, emb, inactive_without_axis=False):
     active = best >= 0
     if inactive_without_axis:
         active = active & (best < INF)
-    depth = torch.clamp(best, min=0.0)
+    depth = _max_c(best, 0.0)
     n_x = bx_ax * bsign  # MTV direction B -> A
     n_y = by_ax * bsign
 
@@ -338,7 +387,7 @@ def _pp_manifold_bm(ax, ay, ema, bx, by, emb, inactive_without_axis=False):
     d0 = -((c0x - r0x) * nrefx + (c0y - r0y) * nrefy)
     d1 = -((c1x - r0x) * nrefx + (c1y - r0y) * nrefy)
 
-    keep_tol = torch.clamp(depth, min=1e-4)
+    keep_tol = _max_c(depth, 1e-4)
     k0 = d0 >= -keep_tol
     k1 = d1 >= -keep_tol
     f0 = k0.to(ax.dtype)
@@ -350,8 +399,8 @@ def _pp_manifold_bm(ax, ay, ema, bx, by, emb, inactive_without_axis=False):
     w1 = torch.where(none_kept, 0.0, f1 / safe_wsum)
     a0 = active & (none_kept | k0)
     a1 = active & ~none_kept & k1
-    ld0 = torch.where(none_kept, depth, torch.clamp(d0, min=1e-6))
-    ld1 = torch.where(none_kept, depth, torch.clamp(d1, min=1e-6))
+    ld0 = torch.where(none_kept, depth, _max_c(d0, 1e-6))
+    ld1 = torch.where(none_kept, depth, _max_c(d1, 1e-6))
 
     pen_x = torch.stack([n_x * ld0 * a0, n_x * ld1 * a1], dim=1)  # [G, 2, B]
     pen_y = torch.stack([n_y * ld0 * a0, n_y * ld1 * a1], dim=1)
@@ -360,6 +409,77 @@ def _pp_manifold_bm(ax, ay, ema, bx, by, emb, inactive_without_axis=False):
     act = torch.stack([a0, a1], dim=1)
     wgt = torch.stack([w0, w1], dim=1)
     return pen_x, pen_y, pt_x, pt_y, act, wgt
+
+
+# ---------------------------------------------------------------------------
+# batch-minor analytic kernels (circle and box families): all [G, B] planes
+# ---------------------------------------------------------------------------
+
+
+def _cc_bm(cax, cay, ra, cbx, cby, rb):
+    """Circle-circle lane: penetration along the centre line, depth
+    ``max(ra + rb - dist, 0)``, contact point between the surfaces (or at
+    the inner centre when one circle holds the other's centre)."""
+    dx, dy = cax - cbx, cay - cby
+    d2 = dx * dx + dy * dy
+    inv = _rsqrt_safe(d2)
+    dist = d2 * inv  # |d| (0 when coincident)
+    ux = torch.where(d2 == 0, 1.0, dx * inv)
+    uy = torch.where(d2 == 0, 0.0, dy * inv)
+    rsum = ra + rb
+    depth = _max_c(rsum - dist, 0.0)
+    active = dist <= rsum
+    pen_x, pen_y = ux * depth, uy * depth
+    ptx = (cbx + ux * (rb - ra) + cax) / 2
+    pty = (cby + uy * (rb - ra) + cay) / 2
+    same_side = (cax - ptx) * (cbx - ptx) + (cay - pty) * (cby - pty) > 0
+    ex, ey = cbx - cax, cby - cay
+    rin = ra + 1e-6
+    b_in_a = ex * ex + ey * ey <= rin * rin
+    fx = torch.where(b_in_a, cbx, cax)
+    fy = torch.where(b_in_a, cby, cay)
+    ptx = torch.where(same_side, fx, ptx)
+    pty = torch.where(same_side, fy, pty)
+    return pen_x * active, pen_y * active, ptx, pty, active
+
+
+def _cb_bm(cx, cy, r, lbx, lby, ubx, uby, eps=1e-6):
+    """Circle-box lane: the centre clamped into the box; a corner contact
+    pushes along the corner's direction, a face contact along the face of
+    least shift (ties: the earliest of bottom, top, left, right wins)."""
+    # jnp.clip(cx, lbx, ubx), with its half-and-half cotangent at a tie
+    ccx = torch.minimum(torch.maximum(cx, lbx), ubx)
+    ccy = torch.minimum(torch.maximum(cy, lby), uby)
+    # perfect-vertex test: the closest point is (numerically) a corner
+    at_x = (torch.abs(ccx - lbx) < eps) | (torch.abs(ccx - ubx) < eps)
+    at_y = (torch.abs(ccy - lby) < eps) | (torch.abs(ccy - uby) < eps)
+    perfect_vertex = at_x & at_y
+    dvx, dvy = ccx - cx, ccy - cy
+    dd = dvx * dvx + dvy * dvy
+    inv = _rsqrt_safe(dd)
+    uvx = torch.where(dd == 0, 1.0, dvx * inv)
+    uvy = torch.where(dd == 0, 0.0, dvy * inv)
+    pvx = -(cx + r * uvx - ccx)
+    pvy = -(cy + r * uvy - ccy)
+    # face case: the best single-axis shift
+    s0 = cy + r - lby
+    s1 = uby - (cy - r)
+    s2 = cx + r - lbx
+    s3 = ubx - (cx - r)
+    best = torch.minimum(torch.minimum(s0, s1), torch.minimum(s2, s3))
+    # the tie order of argmin([s0, s1, s2, s3]): the earliest wins
+    is0 = best == s0
+    is1 = ~is0 & (best == s1)
+    is2 = ~is0 & ~is1 & (best == s2)
+    is3 = ~is0 & ~is1 & ~is2
+    pfx = torch.where(is2, -s2, torch.where(is3, s3, 0.0))
+    pfy = torch.where(is0, -s0, torch.where(is1, s1, 0.0))
+    pen_x = torch.where(perfect_vertex, pvx, pfx)
+    pen_y = torch.where(perfect_vertex, pvy, pfy)
+    ox, oy = cx - ccx, cy - ccy
+    reps = r + eps
+    active = ox * ox + oy * oy <= reps * reps
+    return pen_x * active, pen_y * active, ccx, ccy, active
 
 
 def _overlap_bm(alx, ahx, aly, ahy, blx, bhx, bly, bhy):
@@ -426,10 +546,26 @@ def collide_batched(
         return _side_verts(world, s, tuple(idx), vn)
 
     for g in world.table.groups:
+        if g.kernel in ("cc", "cb"):
+            # circles' centre rows and boxes' (lb, ub) rows; one lane a pair,
+            # weight 1, no partner; these kernels mask themselves, so the
+            # broadphase does not touch them
+            Va, Vb = _circle_box_rows(world, g)
+            axv, ayv = side(g.part_a, Va)
+            bxv, byv = side(g.part_b, Vb)
+            ra, rb = _radii(world, g)
+            if g.kernel == "cc":
+                lane = _cc_bm(axv[:, 0], ayv[:, 0], ra, bxv[:, 0], byv[:, 0], rb)
+            else:
+                lane = _cb_bm(axv[:, 0], ayv[:, 0], ra,
+                              bxv[:, 0], byv[:, 0], bxv[:, 1], byv[:, 1])
+            pieces.append((*lane, torch.ones_like(lane[0])))
+            continue
         if g.kernel != "pp":
             raise NotImplementedError(
-                f"pair-group kernel {g.kernel!r} is not ported yet (ROADMAP "
-                "Queue 1 item 8); the batched torch path runs 'pp' groups"
+                f"pair-group kernel {g.kernel!r} is not ported yet: bb, cp, bp "
+                "and the area kernels (ROADMAP Queue 1 items 8b and 8f); the "
+                "batched torch path runs 'pp', 'cc' and 'cb' groups"
             )
         Gn = g.size
         Va, Vb, ema, emb = _group_masks(world, g)
@@ -537,12 +673,12 @@ def solve_contacts_bm(
     v_n0, _ = rel_vel(s.vx, s.vy, s.omega)
     bias = (
         config.baumgarte
-        * torch.clamp(depth - config.baumgarte_slop, min=0.0)
+        * _max_c(depth - config.baumgarte_slop, 0.0)
         / config.baumgarte_dt
     )
     if config.baumgarte_max_bias is not None:
-        bias = torch.clamp(bias, max=config.baumgarte_max_bias)
-    rest = torch.where(v_n0 > 0, e * torch.clamp(v_n0, min=0.0), 0.0)
+        bias = _min_c(bias, config.baumgarte_max_bias)
+    rest = torch.where(v_n0 > 0, e * _max_c(v_n0, 0.0), 0.0)
     split = position_iterations > 0
     target = torch.where(active, rest if split else rest + bias, 0.0)
     bias = torch.where(active, bias, 0.0)
@@ -581,7 +717,7 @@ def solve_contacts_bm(
     def normal_pass(vx, vy, om, jn):
         v_n, _ = rel_vel(vx, vy, om)
         rhs = v_n + target
-        jn_single = torch.clamp(jn + rhs * inv_kn, min=0.0)
+        jn_single = _max_c(jn + rhs * inv_kn, 0.0)
 
         rhs_p = pswap(rhs)
         jn_p = pswap(jn)
@@ -590,9 +726,9 @@ def solve_contacts_bm(
         x0_full = (k_p * b0 - k_np * b1) / safe_det
         x1_full = (k_n * b1 - k_np * b0) / safe_det
         ok_full = (x0_full >= 0) & (x1_full >= 0) & ok_det
-        x0_c2 = torch.clamp(b0 * inv_kn, min=0.0)
+        x0_c2 = _max_c(b0 * inv_kn, 0.0)
         ok_c2 = k_np * x0_c2 - b1 >= -1e-9
-        x1_c3 = torch.clamp(b1 * inv_kp, min=0.0)
+        x1_c3 = _max_c(b1 * inv_kp, 0.0)
         ok_c3 = k_np * x1_c3 - b0 >= -1e-9
         x0 = torch.where(ok_full, x0_full, torch.where(ok_c2, x0_c2, 0.0))
         x1 = torch.where(
@@ -642,7 +778,7 @@ def solve_contacts_bm(
         for _ in range(position_iterations):
             v_n, _ = rel_vel(pvx, pvy, pom)
             rhs = v_n + bias
-            pj_new = torch.where(active, torch.clamp(pj + rhs * inv_kn, min=0.0), 0.0)
+            pj_new = torch.where(active, _max_c(pj + rhs * inv_kn, 0.0), 0.0)
             pvx, pvy, pom = scatter(pj_new - pj, torch.zeros_like(pj), pvx, pvy, pom)
             pj = pj_new
         s = s._replace(

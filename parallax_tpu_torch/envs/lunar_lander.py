@@ -28,7 +28,7 @@ import torch
 
 from parallax_tpu_torch.dynamics.bodies import BodyState
 from parallax_tpu_torch.dynamics.joints import Joints
-from parallax_tpu_torch.engine.batched import _SoA, physics_core
+from parallax_tpu_torch.engine.batched import _clip_c, _SoA, physics_core
 from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
 from parallax_tpu_torch.envs.base import Environment
 from parallax_tpu_torch.envs.plane_env import PlaneEnvMixin, init_planes_of
@@ -385,8 +385,10 @@ class LunarLander(PlaneEnvMixin, Environment):
 
     def _controls(self, actions, B):
         actions = actions.to(torch.float32).reshape(B, 2)
-        main = torch.clamp(actions[:, 0], 0.0, 1.0)
-        side = torch.clamp(actions[:, 1], -1.0, 1.0)
+        # jnp.clip: at a bound (a saturated tanh policy gives exactly 1.0) the
+        # action takes half the cotangent, as in JAX
+        main = _clip_c(actions[:, 0], 0.0, 1.0)
+        side = _clip_c(actions[:, 1], -1.0, 1.0)
         return main, side
 
     def plane_pre(self, s: _SoA, aux: LanderAux, actions) -> _SoA:

@@ -1,13 +1,25 @@
-"""Host-side 2D helper for building shapes, in numpy float32.
+"""2D helpers: the parts of ``parallax_tpu/geometry/math.py`` the port needs.
 
-The counterpart of ``parallax_tpu/geometry/math.py`` that shape
-construction needs.  It runs once, when a world is defined, so it stays
-in numpy; the per-step geometry lives in ``engine/batched.py``.
+``order_clockwise`` builds shapes once, when a world is defined, so it
+stays in numpy; ``safe_norm`` is the env hooks' norm in torch.  The
+per-step geometry lives in ``engine/batched.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def safe_norm(v, dim: int = -1, keepdim: bool = False):
+    """L2 norm with a finite gradient at ``v = 0`` (where it returns 0).
+
+    ``sqrt(sum(v * v))`` has a NaN reverse-mode gradient at the origin
+    (``inf * 0``); the where-sqrt-where form keeps it 0 there, as the JAX
+    package's ``safe_norm`` does."""
+    sq = torch.sum(v * v, dim=dim, keepdim=keepdim)
+    zero = sq == 0
+    return torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, sq)))
 
 
 def order_clockwise(vertices):

@@ -142,7 +142,7 @@ _SIGNATURES = {
         + [_P] * 2  # terrain x, y
         + [_P] * 6  # outputs
         + [_P]  # active (out)
-        + [_P] * 3  # part_i, part_lv, pair_i
+        + [_P] * 4  # part_i, part_lv, pair_i, pair_f
         + [_P] * 9  # the solver operands, as for contact_solve_fwd
         + [_P] * 2  # geo, scratch
         + [_I] * 5  # P, pairs, V, override_bits, symplectic
@@ -157,7 +157,7 @@ _SIGNATURES = {
         + [_P] * 6  # cotangents of the six outputs
         + [_P] * 6  # cotangents of the six body planes (out)
         + [_P] * 2  # cotangents of the terrain planes (out)
-        + [_P] * 3  # part_i, part_lv, pair_i
+        + [_P] * 4  # part_i, part_lv, pair_i, pair_f
         + [_P] * 9  # the solver operands, as for contact_solve_fwd
         + [_P]  # scratch
         + [_I] * 5  # P, pairs, V, override_bits, symplectic
@@ -166,7 +166,6 @@ _SIGNATURES = {
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
         + [_I, _P]  # has_max_bias, stream
     ),
-    "fused_step_max_parts": [],
     "contact_solver_num_fields": [],
     "contact_solver_max_bodies": [],
     "contact_solver_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations

@@ -27,6 +27,9 @@ import numpy as np
 import torch
 
 from parallax_tpu_torch.dynamics.impulses import ContactSolverConfig
+from parallax_tpu_torch.engine.batched import (
+    ContactsBM, _max_c, _SoA, apply_joints_bm, solve_contacts_bm,
+)
 
 # kernel launches in this process (see module docstring)
 launches = 0
@@ -92,7 +95,7 @@ def apply_joint_rows(jrows, im, ii, px, py, vx, vy, ang, om):
         vby = vy_r[b] + rbx * om_r[b]
         dpx, dpy = pax - pbx, pay - pby
         dvx_, dvy_ = vax - vbx, vay - vby
-        dvn = torch.sqrt(torch.clamp(dvx_ * dvx_ + dvy_ * dvy_, min=1e-30))
+        dvn = torch.sqrt(_max_c(dvx_ * dvx_ + dvy_ * dvy_, 1e-30))
         Jx = dpx * j["kp"] + dvx_ * (dvn + j["v0"]) * j["kd"]
         Jy = dpy * j["kp"] + dvy_ * (dvn + j["v0"]) * j["kd"]
         vx_r[a] = vx_r[a] - Jx * im[a]
@@ -187,8 +190,6 @@ def solve_contacts_plain(
 ):
     """The kernel's plain torch version: ``solve_contacts_bm`` followed by
     ``apply_joints_bm``."""
-    from parallax_tpu_torch.engine.batched import apply_joints_bm, solve_contacts_bm
-
     s = solve_contacts_bm(world, s, con, iterations, position_iterations, dt, config)
     return apply_joints_bm(world, s)
 
@@ -245,8 +246,6 @@ class _ContactSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, statics, pen_x, pen_y, pt_x, pt_y, active, *body):
-        from parallax_tpu_torch.engine.batched import ContactsBM, _SoA
-
         world, iterations, position_iterations, dt, config = statics
         s = _SoA(*body)
         con = ContactsBM(pen_x, pen_y, pt_x, pt_y, active, None)
@@ -258,8 +257,6 @@ class _ContactSolve(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, *grads):
-        from parallax_tpu_torch.engine.batched import ContactsBM, _SoA
-
         pen_x, pen_y, pt_x, pt_y, active, *body = ctx.saved_tensors
         s = _SoA(*body)
         con = ContactsBM(pen_x, pen_y, pt_x, pt_y, active, None)

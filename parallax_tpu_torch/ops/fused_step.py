@@ -1,17 +1,21 @@
 """The fused physics step: CUDA kernels, wrapper and plain versions.
 
 ``csrc/fused_step.cu`` replaces ``parallax_tpu/ops/pallas_step.py``'s
-``_step_kernel`` for worlds whose pair groups are all polygon-polygon
-(``pp``): one launch runs integration and gravity, the world-frame
-vertices (with the per-world terrain override), the SAT manifolds, the
-contact solve and the joints, one CUDA thread per world.  The contact
-geometry stays inside the kernel; it returns the body planes and the
-``[C, B]`` active flags.  Its plain version, :func:`fused_step_plain`, is
-the split step of ``engine.batched`` with the plain solver.
-``csrc/fused_step_bwd.cu`` replaces its reverse pass, ``_step_bwd_kernel``:
-it recomputes the step from the primal inputs and returns the cotangents
-of the body planes and of the terrain planes; its plain version,
-:func:`fused_step_bwd_plain`, is autograd of :func:`fused_step_plain`.
+``_step_kernel`` for worlds whose pair groups are polygon-polygon (``pp``),
+circle-circle (``cc``) and circle-box (``cb``): one launch runs integration
+and gravity, the world-frame vertices (with the per-world terrain
+override), each pair's contact lanes (the SAT manifold of a ``pp`` pair,
+the analytic lane of a ``cc`` or ``cb`` pair), the contact solve and the
+joints, one CUDA thread per world.  The contact geometry stays inside the
+kernel; it returns the body planes and the ``[C, B]`` active flags.  Its
+plain version, :func:`fused_step_plain`, is the split step of
+``engine.batched`` with the plain solver.  ``csrc/fused_step_bwd.cu``
+replaces its reverse pass, ``_step_bwd_kernel``, for ``pp`` worlds: it
+recomputes the step from the primal inputs and returns the cotangents of
+the body planes and of the terrain planes; its plain version,
+:func:`fused_step_bwd_plain`, is autograd of :func:`fused_step_plain`.  The
+reverse pass of the ``cc`` and ``cb`` lanes is not ported yet (ROADMAP
+Queue 1 item 8d): on CUDA tensors such a world raises under autograd.
 
 :func:`physics_core_fused` chooses by the tensors' device and nothing
 else: on CPU tensors it runs the plain version, and autograd of its plain
@@ -38,16 +42,26 @@ from parallax_tpu_torch.geometry.shapes import BOX, MAX_VERTS, edge_mask_for
 launches = 0
 bwd_launches = 0
 
-# pair-group kernels the fused kernel runs; the JAX kernel's circle and box
-# lanes (cc, cb, bb, area_cb) come with RoboCup and billiards
-FUSED_KERNELS = ("pp",)
+# pair-group kernels the fused kernel runs; the JAX kernel's bb and area_cb
+# lanes come with RoboCup (ROADMAP Queue 1 items 8b, 8c and 8f)
+FUSED_KERNELS = ("pp", "cc", "cb")
+# the kernels' reverse pass walks back these lanes only (item 8d)
+FUSED_BWD_KERNELS = ("pp",)
+# the kernels' per-thread limits (csrc/fused_step.cuh, contact_solver.cuh);
+# the launch refuses more as well
+MAX_PARTS = 16
+MAX_BODIES = 64
+# kinds of pair_i's Q_KIND column (csrc/fused_step.cuh PairKind)
+_KINDS = {"pp": 0, "cc": 1, "cb": 2}
 
 
 def supports_fused_step(world) -> bool:
-    """Whether the fused kernel runs ``world``: its pair groups are all in
-    ``FUSED_KERNELS``, the solver is the block solver, and a world with a
-    ``pp`` group has the broadphase off (the kernel has no AABB pre-mask;
-    the rule of ``pallas_step.py:84``)."""
+    """Whether the fused kernel's pair groups cover ``world``: its groups
+    are all in ``FUSED_KERNELS``, the solver is the block solver, and a
+    world with a ``pp`` group has the broadphase off (the kernel has no
+    AABB pre-mask; circle and box lanes mask themselves, so a world without
+    a ``pp`` group may keep it on: the rule of ``pallas_step.py:84-92``).
+    The kernels' size limits are :func:`check_fused_step`'s."""
     kernels = {g.kernel for g in world.table.groups}
     if not kernels <= set(FUSED_KERNELS):
         return False
@@ -56,22 +70,56 @@ def supports_fused_step(world) -> bool:
     return "pp" not in kernels or not world.config.broadphase
 
 
-def check_fused_step(world) -> None:
-    """Raise, saying why, unless :func:`supports_fused_step` holds."""
+def check_fused_step(world, grad: bool = False) -> None:
+    """Raise, saying why, unless the fused kernels run ``world`` on the card.
+
+    Beyond :func:`supports_fused_step`, a world may have at most
+    ``MAX_PARTS`` = 16 parts and ``MAX_BODIES`` = 64 bodies: the kernel
+    keeps every part's vertices in per-thread arrays.  So billiards with 47
+    object balls (52 parts) raises here, where the JAX package silently
+    takes its split step (``engine/batched.py:1158-1167``).  With ``grad``
+    (the step runs under autograd), every group must also be one that the
+    reverse-pass kernel walks back (``FUSED_BWD_KERNELS``)."""
     from parallax_tpu_torch.engine.batched import check_batched_support
 
     check_batched_support(world.config, "the fused step")
-    unported = sorted({g.kernel for g in world.table.groups} - set(FUSED_KERNELS))
+    kernels = _check_kinds(world)
+    if "pp" in kernels and world.config.broadphase:
+        raise ValueError(
+            "the fused step kernel has no AABB pre-mask stage: build a world "
+            "with polygon pairs with broadphase=False"
+        )
+    P = len(world.parts.nverts)
+    if P > MAX_PARTS:
+        raise ValueError(
+            f"the fused step kernel takes at most {MAX_PARTS} parts; this "
+            f"world has {P}: run it on the split step (use_cuda_fused=False)"
+        )
+    if world.n_bodies > MAX_BODIES:
+        raise ValueError(
+            f"the fused step kernel takes at most {MAX_BODIES} bodies; this "
+            f"world has {world.n_bodies}"
+        )
+    no_bwd = sorted(kernels - set(FUSED_BWD_KERNELS))
+    if grad and no_bwd:
+        raise NotImplementedError(
+            f"the fused step's reverse-pass kernel walks back {FUSED_BWD_KERNELS} "
+            f"lanes; the {no_bwd} lanes are not ported yet (ROADMAP Queue 1 item "
+            "8d): train this world on the split step (use_cuda_fused=False)"
+        )
+
+
+def _check_kinds(world) -> set:
+    """The world's pair-group kernels; raise unless the fused kernel has
+    lanes for each of them."""
+    kernels = {g.kernel for g in world.table.groups}
+    unported = sorted(kernels - set(FUSED_KERNELS))
     if unported:
         raise NotImplementedError(
             f"the fused step kernel runs {FUSED_KERNELS} pair groups; "
-            f"{unported} are not ported yet (ROADMAP Queue 1 item 8)"
+            f"{unported} are not ported yet (ROADMAP Queue 1 items 8b, 8c and 8f)"
         )
-    if world.config.broadphase:
-        raise ValueError(
-            "the fused step kernel has no AABB pre-mask stage: build the "
-            "world with broadphase=False"
-        )
+    return kernels
 
 
 class FusedOperands(NamedTuple):
@@ -83,29 +131,44 @@ class FusedOperands(NamedTuple):
 
     part_i: torch.Tensor  # [P, 3] int32: owning body, rotates, vertices read
     part_lv: torch.Tensor  # [P, MAX_VERTS, 2] f32 local vertices
-    pair_i: torch.Tensor  # [pairs, 6] int32: parts a, b, Va, Vb, edge-mask bits
+    # [pairs, 8] int32: parts a, b, Va, Vb, edge-mask bits of a and b, first
+    # lane, kind (pp 0, cc 1, cb 2)
+    pair_i: torch.Tensor
+    pair_f: torch.Tensor  # [pairs, 2] f32: radii of parts a and b
 
 
 def fused_operands(world) -> FusedOperands:
     """Built once per world: each part's body, rotate flag and the number of
-    vertices its groups read (their trimmed ``Va``/``Vb``), and per pair of
-    the table, in lane order, its parts, trimmed vertex counts and edge
-    masks (``engine.batched._group_masks``) as bits."""
+    vertex rows its groups read (their trimmed ``Va``/``Vb``: a circle's
+    centre and a box's ``lb``/``ub`` for ``cc`` and ``cb``, as at
+    ``pallas_step.py:108-113``), and per pair of the table, in lane order,
+    its parts, trimmed row counts, edge masks (``engine.batched._group_masks``)
+    as bits, its first lane (groups concatenate in ``world.table.groups``
+    order: two lanes a ``pp`` pair, one a ``cc`` or ``cb`` pair), its kind
+    and its two radii.  A world with a group the kernel has no lanes for
+    raises, so the operands never carry a kind the kernel would misread."""
 
     def build():
+        _check_kinds(world)
         parts = world.parts
         P = len(parts.nverts)
+        radius = parts.radius.cpu().numpy()
         nv = np.zeros(P, np.int32)
-        pairs = []
+        pairs, radii, lane = [], [], 0
         for g in world.table.groups:
             Va = max(parts.nverts[i] for i in g.part_a)
             Vb = max(parts.nverts[i] for i in g.part_b)
+            if g.kernel != "pp":
+                Va, Vb = min(Va, 2), min(Vb, 2)
             for a, b in zip(g.part_a, g.part_b):
                 nv[a] = max(nv[a], Va)
                 nv[b] = max(nv[b], Vb)
                 ma = edge_mask_for(parts.nverts[a], Va)
                 mb = edge_mask_for(parts.nverts[b], Vb)
-                pairs.append([a, b, Va, Vb, _bits(ma), _bits(mb)])
+                pairs.append([a, b, Va, Vb, _bits(ma), _bits(mb), lane,
+                              _KINDS[g.kernel]])
+                radii.append([radius[a], radius[b]])
+                lane += 2 if g.kernel == "pp" else 1
         rotate = [int(k != BOX) for k in parts.kind]
         part_i = np.stack([np.asarray(parts.body), rotate, nv], axis=1).astype(np.int32)
 
@@ -115,7 +178,8 @@ def fused_operands(world) -> FusedOperands:
         return FusedOperands(
             part_i=t(part_i),
             part_lv=parts.verts.to(torch.float32).contiguous().to(world.device),
-            pair_i=t(np.asarray(pairs, np.int32).reshape(-1, 6)),
+            pair_i=t(np.asarray(pairs, np.int32).reshape(-1, 8)),
+            pair_f=t(np.asarray(radii, np.float32).reshape(-1, 2)),
         )
 
     return world.static(("fused_operands",), build)
@@ -208,7 +272,6 @@ def physics_core_fused(world, s, terrain_override=None, dt=None, accel=None):
         return fused_step_plain(world, s, terrain_override, dt, accel)
     if device.type != "cuda":
         raise ValueError(f"fused step: no kernel for device {device}")
-    check_fused_step(world)
     override = terrain_override or {}
     tparts = tuple(sorted(override))
     for p in tparts:
@@ -217,7 +280,11 @@ def physics_core_fused(world, s, terrain_override=None, dt=None, accel=None):
                    torch.float32, device)
     tx, ty = _terrain_planes(override, tparts, s.px)
     statics = (world, tparts, dt, accel)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (*s, tx, ty)):
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in (*s, tx, ty))
+    # refuses, before any launch, a world whose lanes the reverse pass does
+    # not walk back: never a gradient it did not compute
+    check_fused_step(world, grad=grad)
+    if grad:
         *out, active = _FusedStep.apply(statics, tx, ty, *s)
         return type(s)(*out), _exported(active)
     out, active = _step_cuda(statics, s, tx, ty)
@@ -265,11 +332,7 @@ def _launch_operands(statics, s, tx, ty):
     device = s.px.device
     C = world.table.n_contacts
     n, B = s.px.shape
-    if n > lib.contact_solver_max_bodies():
-        raise ValueError(f"fused step kernel: {n} bodies, at most {lib.contact_solver_max_bodies()}")
-    P = len(world.parts.nverts)
-    if P > lib.fused_step_max_parts():
-        raise ValueError(f"fused step kernel: {P} parts, at most {lib.fused_step_max_parts()}")
+    P = len(world.parts.nverts)  # check_fused_step holds it to MAX_PARTS
     for name, x in zip(s._fields, s):
         _check(name, x, (n, B), torch.float32, device)
     for name, x in (("terrain x", tx), ("terrain y", ty)):
@@ -328,7 +391,7 @@ def fused_step_bwd(world, s, terrain_override, grads, dt=None, accel=None):
         return fused_step_bwd_plain(world, s, terrain_override, grads, dt, accel)
     if device.type != "cuda":
         raise ValueError(f"fused step: no kernel for device {device}")
-    check_fused_step(world)
+    check_fused_step(world, grad=True)
     override = terrain_override or {}
     tparts = tuple(sorted(override))
     tx, ty = _terrain_planes(override, tparts, s.px)

@@ -11,8 +11,16 @@ jax nor the JAX package, so on the GPU machine it runs with
 import numpy as np
 import pytest
 import torch
+from torch_scenarios import (
+    mixed_state,
+    mixed_world,
+    overlap_state,
+    tie_fused_case,
+    tie_solve_case,
+)
 
 from parallax_tpu_torch.engine import batched as tb
+from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
 from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
 from parallax_tpu_torch.ops import contact_solver, fused_step
 from parallax_tpu_torch.parallel import rollout
@@ -33,6 +41,13 @@ def fused_env():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
     return LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True), device="cuda")
+
+
+@pytest.fixture(scope="module")
+def billiards_env():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    return Billiards(BilliardsConfig(use_cuda_fused=True), device="cuda")
 
 
 def _keys(B, seed):
@@ -343,3 +358,104 @@ def test_fused_train_step_on_card_runs_the_fused_kernels_only(fused_env):
     assert torch.isfinite(loss)
     for g in grads:
         assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["bouncer", "billiards48"])
+def test_solver_kernel_on_circle_worlds_matches_plain_version_on_card(cuda_env, label):
+    """The solve kernel at the circle worlds' split-path shapes (one lane a
+    pair, no manifold partner; billiards48's 52 bodies and 1320 lanes):
+    their overlap states at B=1024 through ``collide_batched``, cc and cb
+    lanes active, planes within atol 1e-5 of the plain version."""
+    from parallax_tpu_torch.envs.bouncer import Bouncer
+
+    env, over = ((Bouncer(device="cuda"), (2.0, 0.25, 0.1)) if label == "bouncer" else
+                 (Billiards(BilliardsConfig(n_object=47), device="cuda"), (1.0, 0.03, 0.02)))
+    w, c = env.world, env.world.config
+    s = overlap_state(env, 1024, 3, *over)
+    con = tb.collide_batched(w, s)
+    n_cc = w.table.groups[0].size
+    assert con.active[:n_cc].any() and con.active[n_cc:].any()
+    args = (c.solver_iterations, c.position_iterations, c.dt, c.contact)
+    before = contact_solver.launches
+    got = contact_solver.solve_contacts(w, s, con, *args)
+    assert contact_solver.launches == before + 1
+    want = contact_solver.solve_contacts_plain(w, s, con, *args)
+    for f, x, y in zip(got._fields, got, want):
+        err = (x - y).abs().max().item()
+        assert err <= ATOL, (f, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["billiards8", "mixed"])
+def test_fused_circle_box_lanes_match_plain_version_on_card(billiards_env, case):
+    """The fused kernel's cc and cb lanes against its plain version on the
+    same CUDA tensors: billiards' overlap state at B=1024, and a world that
+    mixes cc, cb and pp groups (its lane offsets); flags equal, planes
+    within atol 1e-5, and lanes of every group active."""
+    if case == "billiards8":
+        world = billiards_env.world
+        s = overlap_state(billiards_env, 1024, 3, 1.0, 0.03, 0.02)
+    else:
+        world, state = mixed_world("cuda")
+        s = mixed_state(world, state, 1024)
+    before = fused_step.launches
+    got_s, got_c = fused_step.physics_core_fused(world, s)
+    assert fused_step.launches == before + 1
+    want_s, want_c = fused_step.fused_step_plain(world, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c.active, want_c.active)
+    lane = 0
+    for g in world.table.groups:
+        width = g.size * (2 if g.kernel == "pp" else 1)
+        assert want_c.active[lane:lane + width].any(), g.kernel
+        lane += width
+    for f, x, y in zip(got_s._fields, got_s, want_s):
+        err = (x - y).abs().max().item()
+        assert err <= ATOL, (f, err)
+
+
+@pytest.mark.cuda
+def test_reverse_kernels_at_a_clamp_tie_match_plain_vjps_on_card(cuda_env, fused_env):
+    """The clamp-tie cases of ``tests/test_torch_clamp_ties.py`` through the
+    solver's and the fused step's reverse-pass kernels against autograd of
+    their plain versions on the card: rtol 2e-4, atol 1e-5 (the kernels
+    split a tie's cotangent half and half, as torch.maximum and JAX do)."""
+    s, con, cot = tie_solve_case(cuda_env, "cuda")
+    args = (3, 2, 0.01, cuda_env.world.config.contact)
+    got = contact_solver.solve_contacts_bwd(cuda_env.world, s, con, cot, *args)
+    want = contact_solver.solve_contacts_bwd_plain(cuda_env.world, s, con, cot, *args)
+    s, override, cot = tie_fused_case(fused_env, "cuda")
+    fgot = fused_step.fused_step_bwd(fused_env.world, s, override, cot)
+    fwant = fused_step.fused_step_bwd_plain(fused_env.world, s, override, cot)
+    torch.cuda.synchronize()
+    for x, y in zip((*got[0], *got[1:], *fgot[0], *fgot[1:]),
+                    (*want[0], *want[1:], *fwant[0], *fwant[1:])):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+    assert got[0].vy.abs().max() > 0.1 and fgot[0].vy.abs().max() > 0.1
+
+
+@pytest.mark.cuda
+def test_fused_step_on_circle_lanes_refuses_autograd_on_card(billiards_env):
+    """The reverse-pass kernel walks back pp lanes only: on a cc/cb world
+    under autograd the fused step raises at the forward, naming ROADMAP
+    item 8d, before any launch; without grad it runs.  A world over the
+    kernel's 16 parts raises too.  Neither falls back to the split step."""
+    world = billiards_env.world
+    s = overlap_state(billiards_env, 256, 3, 1.0, 0.03, 0.02)
+    vx = s.vx.clone().requires_grad_(True)
+    f0, s0 = fused_step.launches, contact_solver.launches
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8d"):
+        fused_step.physics_core_fused(world, s._replace(vx=vx))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8d"):
+        fused_step.fused_step_bwd(world, s, None, s)
+    assert (fused_step.launches, contact_solver.launches) == (f0, s0)
+    with torch.no_grad():
+        out, _ = fused_step.physics_core_fused(world, s._replace(vx=vx))
+    assert fused_step.launches == f0 + 1 and torch.isfinite(out.px).all()
+    big = Billiards(BilliardsConfig(n_object=47, use_cuda_fused=True), device="cuda")
+    sb = overlap_state(big, 128, 3, 1.0, 0.03, 0.02)
+    with pytest.raises(ValueError, match="at most 16 parts"):
+        fused_step.physics_core_fused(big.world, sb)
+    assert fused_step.launches == f0 + 1 and contact_solver.launches == s0

@@ -104,15 +104,21 @@ def test_lander_refuses_the_fused_step_with_broadphase():
 
 
 def test_gate_names_the_roadmap_item_for_unported_lanes():
+    # a box on a static box: a bb group, whose fused lanes are not ported
+    # (circle-box lanes are, since the billiards slice)
     bodies = [
-        BodyDef(shapes=[circle(0.3)], position=(0.0, 0.0)),
+        BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))], position=(0.0, 0.0)),
         BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf,
                 inertia=np.inf, position=(0.0, -0.5)),
     ]
     world, _ = World.build(bodies, WorldConfig(broadphase=False), device="cpu")
+    assert [g.kernel for g in world.table.groups] == ["bb"]
     assert not fused_step.supports_fused_step(world)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 items 8b, 8c and 8f"):
         fused_step.check_fused_step(world)
+    # nor do the kernel's operands encode lanes it would misread
+    with pytest.raises(NotImplementedError, match="Queue 1 items 8b, 8c and 8f"):
+        fused_step.fused_operands(world)
 
 
 def test_fused_operands_match_jax_static_info(fused):
@@ -125,13 +131,15 @@ def test_fused_operands_match_jax_static_info(fused):
     def bits(mask):
         return sum(1 << v for v, on in enumerate(mask) if on > 0)
 
+    # then each pair's first lane (two a pp pair) and its kind (pp: 0)
     want = [
-        (a, b, g["Va"], g["Vb"], bits(g["ema"][j]), bits(g["emb"][j]))
+        (a, b, g["Va"], g["Vb"], bits(g["ema"][j]), bits(g["emb"][j]), 2 * j, 0)
         for g in st["groups"]
         for j, (a, b) in enumerate(zip(g["ia"], g["ib"]))
     ]
     assert [tuple(r) for r in ops.pair_i.tolist()] == want
     assert 2 * len(want) == env.world.table.n_contacts
+    assert not ops.pair_f.any()  # polygons have no radius
 
 
 def test_wrapper_runs_plain_version_on_cpu_without_launching(fused):

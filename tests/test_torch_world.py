@@ -81,15 +81,22 @@ def test_unported_kernels_and_modes_raise():
     from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
     from parallax_tpu_torch.geometry.shapes import box, circle
 
+    # a box on a static box: a bb group, not ported (a circle on the box,
+    # a cb group, runs since the billiards slice)
     bodies = [
-        BodyDef(shapes=[circle(0.3)], position=(0.0, 0.0)),
+        BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))], position=(0.0, 0.0)),
         BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf,
                 inertia=np.inf, position=(0.0, -0.5)),
     ]
     world, st = World.build(bodies, WorldConfig(), device="cpu")
     s = _to_soa(type(st)(*(x[None] for x in st)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 items 8b and 8f"):
         physics_core(world, s)
+    ball = [BodyDef(shapes=[circle(0.3)], position=(0.0, 0.0))] + bodies[1:]
+    world_cb, _ = World.build(ball, WorldConfig(), device="cpu")
+    assert [g.kernel for g in world_cb.table.groups] == ["cb"]
+    out, con = physics_core(world_cb, s)
+    assert torch.isfinite(out.py).all() and con.active.shape == (1, 1)
     world_gs, _ = World.build(bodies, WorldConfig(solver_mode="gauss_seidel"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         physics_core(world_gs, s)
