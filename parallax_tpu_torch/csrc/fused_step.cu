@@ -2,11 +2,12 @@
 //
 // Replaces parallax_tpu/ops/pallas_step.py:_step_kernel (l.473: the math
 // of step_arrays, the SAT of _pp_manifold_arrays, the circle and box lanes
-// of l.415-433 and the vertices of _world_verts_rows) on NVIDIA Hopper
+// of l.415-440 and the vertices of _world_verts_rows) on NVIDIA Hopper
 // (sm_90a), for worlds whose pair groups are polygon-polygon ("pp"),
-// circle-circle ("cc") and circle-box ("cb"); the JAX kernel's bb and
-// area_cb lanes are not ported yet.  Per world it computes what
-// ops/fused_step.py:fused_step_plain computes, lane for lane:
+// circle-circle ("cc"), circle-box ("cb") and circle-in-area-box
+// ("area_cb"); the JAX kernel's box-box ("bb") lanes are not ported yet.
+// Per world it computes what ops/fused_step.py:fused_step_plain computes,
+// lane for lane:
 //
 //   * integration and gravity ("reference": integrate, then gravity;
 //     "symplectic": the other order), gravity on movable bodies only;
@@ -18,8 +19,9 @@
 //     contact lanes per pair, point-minor; a pair with no valid axis (a
 //     world with NaN vertices) is inactive, as in the TPU kernel
 //     (pallas_step.py:251);
-//   * per circle pair one lane with no partner: _cc_bm's or _cb_bm's
-//     arithmetic (cc_lane, cb_lane), with the pair's radii;
+//   * per circle pair one lane with no partner: _cc_bm's, _cb_bm's or
+//     _area_cb_bm's arithmetic (CcLane, CbLane, AreaCbLane), with the
+//     pair's radii, dispatched on the pair's kind;
 //   * every pair writes from its first lane on, which the host takes from
 //     the pair table (groups concatenate in table order), so the solver's
 //     partner table lines up;
@@ -44,17 +46,18 @@
 // world's vertices in per-thread arrays, each pair's axes in per-thread
 // arrays, body planes and lanes addressed [row * B + b] so that
 // neighbouring threads touch neighbouring addresses.  A circle lane costs
-// about 45 (cc) or 60 (cb) float32 operations; billiards (28 cc and 32 cb
-// pairs, C=60) spends most of its time in the solve.  Spreading a world's
-// pairs over a warp is later work.
+// about 45 (cc), 60 (cb) or 35 (area_cb) float32 operations; billiards (28
+// cc and 32 cb pairs, C=60) and RoboCup (21 cc, 42 cb and 7 area_cb pairs,
+// C=70) spend most of their time in the solve.  Spreading a world's pairs
+// over a warp is later work.
 //
 // Build without --use_fast_math and with --fmad=false, and keep the plain
 // version's order of operations: the plain torch ops round every product
 // and sum on their own, and call cosf, sinf and rsqrtf as this code does.
 // Selections follow the plain version: the first minimum axis wins (o <
 // best), a reference edge needs al > best, A is the reference when its
-// score is >=, a circle-box face tie goes to the earliest side; min and max
-// propagate NaN (maxp, minp).
+// score is >=, a circle-box or area face tie goes to the earliest side;
+// min and max propagate NaN (maxp, minp).
 //
 // The integration, the vertices, the SAT and the circle lanes live in
 // fused_step.cuh, which the reverse pass (fused_step_bwd.cu) shares.
@@ -83,7 +86,8 @@ fused_step_kernel(const Args args, const StepArgs st) {
 // planes are float32 [n, B], the terrain planes [k * V, B], row-major and
 // contiguous; active is uint8 [C, B]; geo is [4, C, B] and scratch
 // [NUM_FIELDS, C, B]; pair_i is int32 [npairs, PAIR_COLS] and pair_f
-// float32 [npairs, 2].  The solver operands are contact_solve_fwd's.
+// float32 [npairs, 2]; lanes is the lanes the pairs' kinds give, which must
+// equal C.  The solver operands are contact_solve_fwd's.
 extern "C" int fused_step_fwd(
     const float* px, const float* py, const float* vx, const float* vy,
     const float* ang, const float* om, const float* tx, const float* ty,
@@ -95,14 +99,14 @@ extern "C" int fused_step_fwd(
     const float* body_im, const float* body_ii,
     const int32_t* joint_body, const float* joint_f,
     float* geo, float* scratch,
-    int P, int npairs, int V, int override_bits, int symplectic,
+    int P, int npairs, int lanes, int V, int override_bits, int symplectic,
     float gdx, float gdy,
     int B, int C, int n, int J, int iterations, int position_iterations,
     float dt, float baumgarte, float slop, float baumgarte_dt,
     float max_bias, int has_max_bias, void* stream) {
-  // a pair writes one lane (cc, cb) or two (pp)
-  if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C < npairs ||
-      C > 2 * npairs || B <= 0) {
+  // lanes: what the pairs' kinds give, two a pp pair and one any other
+  if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C != lanes ||
+      lanes < npairs || lanes > 2 * npairs || B <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t plane = (size_t)C * B;

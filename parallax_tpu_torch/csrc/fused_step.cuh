@@ -1,11 +1,11 @@
 // Device code shared by the fused step (fused_step.cu) and its reverse pass
 // (fused_step_bwd.cu), one CUDA thread per world: integration and gravity,
 // the world-frame vertices, each polygon pair's SAT and reference-face clip,
-// and each circle-circle and circle-box pair's analytic lane.  The reverse
-// pass recomputes the step with exactly this code, so its SAT decisions
-// (best axis, sign, reference edge, clip cuts, kept points) are the forward
-// kernel's to the bit.  See fused_step.cu for what it computes and the
-// rules it follows.
+// and each circle-circle, circle-box and circle-in-area-box pair's analytic
+// lane.  The reverse pass recomputes the step with exactly this code, so its
+// decisions (the SAT's best axis, sign, reference edge, clip cuts and kept
+// points; a circle lane's branches) are the forward kernel's to the bit.
+// See fused_step.cu for what it computes and the rules it follows.
 
 #pragma once
 
@@ -22,8 +22,9 @@ constexpr int MAX_AXES = 2 * MAX_V;
 // columns of part_i [P, PART_COLS] and pair_i [npairs, PAIR_COLS]
 enum PartCol { P_BODY, P_ROTATE, P_NV, PART_COLS };
 enum PairCol { Q_A, Q_B, Q_VA, Q_VB, Q_MASK_A, Q_MASK_B, Q_LANE, Q_KIND, PAIR_COLS };
-// pair kinds (pair_i's Q_KIND): two SAT lanes, or one analytic lane
-enum PairKind { K_PP, K_CC, K_CB };
+// pair kinds (pair_i's Q_KIND), in the order of ops/fused_step.py's _KINDS:
+// two SAT lanes, or one analytic lane
+enum PairKind { K_PP, K_CC, K_CB, K_AREA_CB };
 
 struct StepArgs {
   const float *px, *py, *vx, *vy, *ang, *om;  // [n, B] before the step
@@ -227,70 +228,118 @@ struct Lane {
 // circle A against circle B (engine/batched.py:_cc_bm): penetration along
 // the centre line, depth max(ra + rb - dist, 0), the contact point midway
 // between the surfaces, or at the inner centre when one circle holds the
-// other's centre
-__device__ Lane cc_lane(float cax, float cay, float ra, float cbx, float cby,
-                        float rb) {
-  const float dx = cax - cbx, dy = cay - cby;
-  const float d2 = dx * dx + dy * dy;
-  const float inv = rsqrtf(d2 <= 0.0f ? 1.0f : d2);
-  const float dist = d2 * inv;  // |d| (0 when coincident)
-  const float ux = d2 == 0.0f ? 1.0f : dx * inv;
-  const float uy = d2 == 0.0f ? 0.0f : dy * inv;
-  const float rsum = ra + rb;
-  const float depth = maxp(rsum - dist, 0.0f);
-  const bool active = dist <= rsum;
-  float ptx = (cbx + ux * (rb - ra) + cax) / 2.0f;
-  float pty = (cby + uy * (rb - ra) + cay) / 2.0f;
-  const bool same_side =
-      (cax - ptx) * (cbx - ptx) + (cay - pty) * (cby - pty) > 0.0f;
-  const float ex = cbx - cax, ey = cby - cay;
-  const float rin = ra + 1e-6f;
-  const bool b_in_a = ex * ex + ey * ey <= rin * rin;
-  if (same_side) {
-    ptx = b_in_a ? cbx : cax;
-    pty = b_in_a ? cby : cay;
+// other's centre.  Keeps what its adjoint needs.
+struct CcLane {
+  float dx, dy, d2, inv, dist, ux, uy, over, k;  // over = ra + rb - dist
+  bool same_side, b_in_a;
+  Lane out;
+
+  __device__ void run(float cax, float cay, float ra, float cbx, float cby,
+                      float rb) {
+    dx = cax - cbx;
+    dy = cay - cby;
+    d2 = dx * dx + dy * dy;
+    inv = rsqrtf(d2 <= 0.0f ? 1.0f : d2);
+    dist = d2 * inv;  // |d| (0 when coincident)
+    ux = d2 == 0.0f ? 1.0f : dx * inv;
+    uy = d2 == 0.0f ? 0.0f : dy * inv;
+    const float rsum = ra + rb;
+    over = rsum - dist;
+    const float depth = maxp(over, 0.0f);
+    const bool active = dist <= rsum;
+    k = rb - ra;
+    float ptx = (cbx + ux * k + cax) / 2.0f;
+    float pty = (cby + uy * k + cay) / 2.0f;
+    same_side = (cax - ptx) * (cbx - ptx) + (cay - pty) * (cby - pty) > 0.0f;
+    const float ex = cbx - cax, ey = cby - cay;
+    const float rin = ra + 1e-6f;
+    b_in_a = ex * ex + ey * ey <= rin * rin;
+    if (same_side) {
+      ptx = b_in_a ? cbx : cax;
+      pty = b_in_a ? cby : cay;
+    }
+    const float m = active ? 1.0f : 0.0f;
+    out = {ux * depth * m, uy * depth * m, ptx, pty, active};
   }
-  const float m = active ? 1.0f : 0.0f;
-  return {ux * depth * m, uy * depth * m, ptx, pty, active};
-}
+};
 
 // circle against the axis-aligned box [lb, ub] (engine/batched.py:_cb_bm):
 // the centre clamped into the box; at a corner (within eps on both axes)
 // the push runs along the corner's direction, else along the face of least
-// shift, the earliest of s0..s3 winning a tie
-__device__ Lane cb_lane(float cx, float cy, float r, float lbx, float lby,
-                        float ubx, float uby) {
-  const float eps = 1e-6f;
-  const float ccx = minp(maxp(cx, lbx), ubx);
-  const float ccy = minp(maxp(cy, lby), uby);
-  const bool at_x = fabsf(ccx - lbx) < eps || fabsf(ccx - ubx) < eps;
-  const bool at_y = fabsf(ccy - lby) < eps || fabsf(ccy - uby) < eps;
-  const bool perfect_vertex = at_x && at_y;
-  const float dvx = ccx - cx, dvy = ccy - cy;
-  const float dd = dvx * dvx + dvy * dvy;
-  const float inv = rsqrtf(dd <= 0.0f ? 1.0f : dd);
-  const float uvx = dd == 0.0f ? 1.0f : dvx * inv;
-  const float uvy = dd == 0.0f ? 0.0f : dvy * inv;
-  const float pvx = -(cx + r * uvx - ccx);
-  const float pvy = -(cy + r * uvy - ccy);
-  const float s0 = cy + r - lby;
-  const float s1 = uby - (cy - r);
-  const float s2 = cx + r - lbx;
-  const float s3 = ubx - (cx - r);
-  const float best = minp(minp(s0, s1), minp(s2, s3));
-  const bool is0 = best == s0;
-  const bool is1 = !is0 && best == s1;
-  const bool is2 = !is0 && !is1 && best == s2;
-  const bool is3 = !is0 && !is1 && !is2;
-  const float pfx = is2 ? -s2 : (is3 ? s3 : 0.0f);
-  const float pfy = is0 ? -s0 : (is1 ? s1 : 0.0f);
-  const float ox = cx - ccx, oy = cy - ccy;
-  const float reps = r + eps;
-  const bool active = ox * ox + oy * oy <= reps * reps;
-  const float m = active ? 1.0f : 0.0f;
-  return {(perfect_vertex ? pvx : pfx) * m, (perfect_vertex ? pvy : pfy) * m,
-          ccx, ccy, active};
-}
+// shift, the earliest of s0..s3 winning a tie.  Keeps what its adjoint
+// needs.
+struct CbLane {
+  float ccx, ccy, dvx, dvy, dd, inv, uvx, uvy;
+  bool perfect_vertex, is0, is1, is2, is3;
+  Lane out;
+
+  __device__ void run(float cx, float cy, float r, float lbx, float lby,
+                      float ubx, float uby) {
+    const float eps = 1e-6f;
+    ccx = minp(maxp(cx, lbx), ubx);
+    ccy = minp(maxp(cy, lby), uby);
+    const bool at_x = fabsf(ccx - lbx) < eps || fabsf(ccx - ubx) < eps;
+    const bool at_y = fabsf(ccy - lby) < eps || fabsf(ccy - uby) < eps;
+    perfect_vertex = at_x && at_y;
+    dvx = ccx - cx;
+    dvy = ccy - cy;
+    dd = dvx * dvx + dvy * dvy;
+    inv = rsqrtf(dd <= 0.0f ? 1.0f : dd);
+    uvx = dd == 0.0f ? 1.0f : dvx * inv;
+    uvy = dd == 0.0f ? 0.0f : dvy * inv;
+    const float pvx = -(cx + r * uvx - ccx);
+    const float pvy = -(cy + r * uvy - ccy);
+    const float s0 = cy + r - lby;
+    const float s1 = uby - (cy - r);
+    const float s2 = cx + r - lbx;
+    const float s3 = ubx - (cx - r);
+    const float best = minp(minp(s0, s1), minp(s2, s3));
+    is0 = best == s0;
+    is1 = !is0 && best == s1;
+    is2 = !is0 && !is1 && best == s2;
+    is3 = !is0 && !is1 && !is2;
+    const float pfx = is2 ? -s2 : (is3 ? s3 : 0.0f);
+    const float pfy = is0 ? -s0 : (is1 ? s1 : 0.0f);
+    const float ox = cx - ccx, oy = cy - ccy;
+    const float reps = r + eps;
+    const bool active = ox * ox + oy * oy <= reps * reps;
+    const float m = active ? 1.0f : 0.0f;
+    out = {(perfect_vertex ? pvx : pfx) * m, (perfect_vertex ? pvy : pfy) * m,
+           ccx, ccy, active};
+  }
+};
+
+// circle held inside the area box [lb, ub] (engine/batched.py:_area_cb_bm):
+// the push back by how far the circle pokes past each side, max(., 0) of
+// each, active when any is positive; the contact point on the circle at the
+// side it pokes furthest past, the earliest of right, top, left, bottom
+// winning a tie.  Keeps what its adjoint needs.
+struct AreaCbLane {
+  float hx, hy, lx, ly;  // how far the circle pokes past each side
+  Lane out;
+
+  __device__ void run(float cx, float cy, float r, float lbx, float lby,
+                      float ubx, float uby) {
+    hx = cx + r - ubx;
+    hy = cy + r - uby;
+    lx = lbx - (cx - r);
+    ly = lby - (cy - r);
+    const float ohx = maxp(hx, 0.0f), ohy = maxp(hy, 0.0f);
+    const float olx = maxp(lx, 0.0f), oly = maxp(ly, 0.0f);
+    const float pen_x = -ohx + olx;
+    const float pen_y = -ohy + oly;
+    const float depth = maxp(maxp(ohx, ohy), maxp(olx, oly));
+    const bool active = depth > 0.0f;
+    const float best = maxp(maxp(hx, hy), maxp(lx, ly));
+    const bool is_hx = best == hx;
+    const bool is_hy = !is_hx && best == hy;
+    const bool is_lx = !is_hx && !is_hy && best == lx;
+    const float ptx = is_hx ? cx + r : (is_hy ? cx : (is_lx ? cx - r : cx));
+    const float pty = is_hx ? cy : (is_hy ? cy + r : (is_lx ? cy : cy - r));
+    const float m = active ? 1.0f : 0.0f;
+    out = {pen_x * m, pen_y * m, ptx, pty, active};
+  }
+};
 
 // integration and gravity of world b's bodies, written to the planes
 // args.o*; the poses stay in qx, qy and the cosine and sine of the angle,
@@ -364,8 +413,20 @@ __device__ void world_vertices(const StepArgs& st, size_t B, int b,
   }
 }
 
-// every pair's lanes into st.geo and st.active, from its first lane on: a
-// polygon pair's two (point-minor), a circle pair's one
+// one analytic lane into st.geo and st.active at offset i0
+__device__ void write_lane(const StepArgs& st, size_t plane, size_t i0,
+                           const Lane& l) {
+  st.geo[i0] = l.pen_x;
+  st.geo[plane + i0] = l.pen_y;
+  st.geo[2 * plane + i0] = l.pt_x;
+  st.geo[3 * plane + i0] = l.pt_y;
+  st.active[i0] = l.active;
+}
+
+// every pair's lanes into st.geo and st.active, from its first lane on, by
+// its kind: a polygon pair's two (point-minor), a circle pair's one.  A
+// circle's centre is its row 0, a box's lb and ub its rows 0 and 1.  A kind
+// this code does not name writes nothing (the host never sends one).
 __device__ void pair_geometry(const StepArgs& st, int C, size_t B, int b,
                               const float* wx, const float* wy) {
   const size_t plane = (size_t)C * B;
@@ -373,34 +434,46 @@ __device__ void pair_geometry(const StepArgs& st, int C, size_t B, int b,
     const int32_t* qi = st.pair_i + q * PAIR_COLS;
     const int pa = qi[Q_A] * MAX_V, pb = qi[Q_B] * MAX_V;
     const size_t i0 = (size_t)qi[Q_LANE] * B + b;
-    if (qi[Q_KIND] != K_PP) {
-      // a circle's centre is its row 0; a box's lb and ub its rows 0 and 1
-      const float ra = st.pair_f[2 * q], rb = st.pair_f[2 * q + 1];
-      const Lane l = qi[Q_KIND] == K_CC
-                         ? cc_lane(wx[pa], wy[pa], ra, wx[pb], wy[pb], rb)
-                         : cb_lane(wx[pa], wy[pa], ra, wx[pb], wy[pb],
-                                   wx[pb + 1], wy[pb + 1]);
-      st.geo[i0] = l.pen_x;
-      st.geo[plane + i0] = l.pen_y;
-      st.geo[2 * plane + i0] = l.pt_x;
-      st.geo[3 * plane + i0] = l.pt_y;
-      st.active[i0] = l.active;
-      continue;
+    const float ra = st.pair_f[2 * q], rb = st.pair_f[2 * q + 1];
+    switch (qi[Q_KIND]) {
+      case K_PP: {
+        PairSat s;
+        s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
+              qi[Q_VB], qi[Q_MASK_B]);
+        const size_t i1 = i0 + B;
+        st.geo[i0] = s.n_x * s.ld0 * (s.a0 ? 1.0f : 0.0f);
+        st.geo[i1] = s.n_x * s.ld1 * (s.a1 ? 1.0f : 0.0f);
+        st.geo[plane + i0] = s.n_y * s.ld0 * (s.a0 ? 1.0f : 0.0f);
+        st.geo[plane + i1] = s.n_y * s.ld1 * (s.a1 ? 1.0f : 0.0f);
+        st.geo[2 * plane + i0] = s.c0x;
+        st.geo[2 * plane + i1] = s.c1x;
+        st.geo[3 * plane + i0] = s.c0y;
+        st.geo[3 * plane + i1] = s.c1y;
+        st.active[i0] = s.a0;
+        st.active[i1] = s.a1;
+        break;
+      }
+      case K_CC: {
+        CcLane l;
+        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], rb);
+        write_lane(st, plane, i0, l.out);
+        break;
+      }
+      case K_CB: {
+        CbLane l;
+        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
+        write_lane(st, plane, i0, l.out);
+        break;
+      }
+      case K_AREA_CB: {
+        AreaCbLane l;
+        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
+        write_lane(st, plane, i0, l.out);
+        break;
+      }
+      default:
+        break;
     }
-    PairSat s;
-    s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
-          qi[Q_VB], qi[Q_MASK_B]);
-    const size_t i1 = i0 + B;
-    st.geo[i0] = s.n_x * s.ld0 * (s.a0 ? 1.0f : 0.0f);
-    st.geo[i1] = s.n_x * s.ld1 * (s.a1 ? 1.0f : 0.0f);
-    st.geo[plane + i0] = s.n_y * s.ld0 * (s.a0 ? 1.0f : 0.0f);
-    st.geo[plane + i1] = s.n_y * s.ld1 * (s.a1 ? 1.0f : 0.0f);
-    st.geo[2 * plane + i0] = s.c0x;
-    st.geo[2 * plane + i1] = s.c1x;
-    st.geo[3 * plane + i0] = s.c0y;
-    st.geo[3 * plane + i1] = s.c1y;
-    st.active[i0] = s.a0;
-    st.active[i1] = s.a1;
   }
 }
 

@@ -1,11 +1,14 @@
 // Reverse pass of the fused physics step, one CUDA thread per world.
 //
 // Replaces parallax_tpu/ops/pallas_step.py:_step_bwd_kernel (l.495) on
-// NVIDIA Hopper (sm_90a), for worlds whose pair groups are all
-// polygon-polygon ("pp"); the adjoints of the forward's circle-circle and
-// circle-box lanes (fused_step.cu) are not ported yet, and the launch
-// refuses a world with them (C != 2 * npairs).  Given the
-// step's primal inputs (the six [n, B] body planes before the step and the
+// NVIDIA Hopper (sm_90a), for worlds whose pair groups are polygon-polygon
+// ("pp"), circle-circle ("cc"), circle-box ("cb") and circle-in-area-box
+// ("area_cb"), the kinds of the forward kernel (fused_step.cu); its box-box
+// ("bb") lanes are not ported yet.  For a world whose lane count is not a
+// multiple of 8 (RoboCup, C=70; billiards8, C=60) the JAX package takes
+// jax.vjp of its split step instead of its kernel (pallas_step.py:660-673,
+// a Mosaic limit): that is the same VJP, and this kernel computes it for
+// every world.  Given the step's primal inputs (the six [n, B] body planes before the step and the
 // terrain-override planes) and the cotangents of its six output body
 // planes, it returns the cotangents of the six input body planes and of the
 // terrain planes (dtx, dty [k * V, B]): the VJP of fused_step_fwd, which is
@@ -32,21 +35,28 @@
 //      solver reverse kernel's own code, on those scratch planes.  It
 //      yields the cotangents of the integrated state and of each lane's
 //      pen_x, pen_y, pt_x, pt_y.
-//   3. SAT + clip adjoint: each pair with a nonzero lane cotangent is run
-//      forward again in registers (PairSat) and walked back: through the
-//      lanes' depths and the MTV normal, the reference-face clips and the
-//      reference tangent, into the endpoints of the reference and incident
-//      edges; through the best axis into its edge's two vertices and, by
-//      the projection chains, into every vertex of both polygons.  Every
-//      term of a pair's adjoint is a product with one of its lane
-//      cotangents, so a pair whose cotangents are all zero (both lanes
-//      inactive, in a world without NaN) is skipped.  The vertex cotangents
-//      gwx, gwy [MAX_PARTS * MAX_V] accumulate over the pairs that share a
-//      part.
+//   3. The lanes' adjoint, by each pair's kind.  A pair with a nonzero
+//      lane cotangent is run forward again in registers and walked back.
+//      A polygon pair (PairSat, its two lanes): through the lanes' depths
+//      and the MTV normal, the reference-face clips and the reference
+//      tangent, into the endpoints of the reference and incident edges;
+//      through the best axis into its edge's two vertices and, by the
+//      projection chains, into every vertex of both polygons.  A circle
+//      pair (CcLane, CbLane, AreaCbLane; its one lane, whose four
+//      cotangents it alone reads) into the rows it read: a circle's centre,
+//      a box's lb and ub (cb_lane_bwd, area_cb_lane_bwd: the clip of the
+//      centre into the box and the four floors split a tie's cotangent
+//      half and half; the face and wall selections take none).  Every term
+//      of a pair's adjoint is a product with one of its lane cotangents, so
+//      a pair whose cotangents are all zero (its lanes inactive, in a world
+//      without NaN) is skipped.  The vertex cotangents gwx, gwy
+//      [MAX_PARTS * MAX_V] accumulate over the pairs that share a part.
 //   4. Vertex adjoint: an overridden part writes its cotangents to its rows
 //      of dtx, dty (rows past the vertices it reads are 0); a body part adds
-//      them to its body's x and y and, when it rotates, to its angle
-//      through the cosine and sine.
+//      them to its body's x and y and, when it rotates (a polygon or a
+//      circle; a box translates only, P_ROTATE = 0, as at
+//      pallas_step.py:172-185), to its angle through the cosine and sine.
+//      Static bodies receive their cotangents too, as from jax.vjp.
 //   5. Integration adjoint: gravity is a constant, so in either order
 //      dv += dq * dt and domega += dangle * dt.
 //
@@ -58,7 +68,8 @@
 // twice the solve), and the SAT adjoint of the pairs that touch; the
 // scratch (the solver's tape, 1,932 rows of B floats at these shapes, plus
 // 6n + 8C rows and the flags, about 77 MB at B=8192) is written once and
-// read about twice, mostly from L2.  The design is the simple one: one
+// read about twice, mostly from L2.  A circle lane's adjoint is some 40 to
+// 80 float32 operations in registers, far below its pair's solve.  The design is the simple one: one
 // thread per world (64 blocks of 128 at B=8192, half the SMs), the world's
 // vertices and their cotangents in per-thread arrays, planes addressed
 // [row * B + b].  Spreading a world's pairs and lanes over a warp is later
@@ -280,6 +291,162 @@ __device__ void pair_bwd(const PairSat& s, const float* ax, const float* ay,
   }
 }
 
+// adjoint of CcLane::run (l, recomputed): g holds the cotangents of its
+// lane's pen_x, pen_y, pt_x, pt_y; they go into the centre rows of A (ga)
+// and B (gb)
+__device__ void cc_lane_bwd(const CcLane& l, const float* g, float* gax,
+                            float* gay, float* gbx, float* gby) {
+  // pen = u * depth * active
+  const float m = l.out.active ? 1.0f : 0.0f;
+  const float gpx = g[0] * m, gpy = g[1] * m;
+  float g_ux = gpx * maxp(l.over, 0.0f), g_uy = gpy * maxp(l.over, 0.0f);
+  const float g_depth = gpx * l.ux + gpy * l.uy;
+  // pt = where(same_side, where(b_in_a, cb, ca), (cb + u * k + ca) / 2)
+  if (l.same_side) {
+    if (l.b_in_a) {
+      gbx[0] += g[2];
+      gby[0] += g[3];
+    } else {
+      gax[0] += g[2];
+      gay[0] += g[3];
+    }
+  } else {
+    const float hx = g[2] / 2.0f, hy = g[3] / 2.0f;
+    gax[0] += hx;
+    gay[0] += hy;
+    gbx[0] += hx;
+    gby[0] += hy;
+    g_ux += hx * l.k;
+    g_uy += hy * l.k;
+  }
+  // depth = max(rsum - dist, 0)
+  float g_over, g_floor;
+  max_bwd(l.over, 0.0f, g_depth, g_over, g_floor);
+  const float g_dist = -g_over;
+  // u = where(d2 == 0, (1, 0), d * inv); dist = d2 * inv; inv = rsqrt(d2)
+  float g_dx = 0.0f, g_dy = 0.0f, g_inv = g_dist * l.d2;
+  if (l.d2 != 0.0f) {
+    g_dx += g_ux * l.inv;
+    g_dy += g_uy * l.inv;
+    g_inv += g_ux * l.dx + g_uy * l.dy;
+  }
+  float g_d2 = g_dist * l.inv;
+  if (l.d2 > 0.0f) g_d2 += -0.5f * g_inv * (l.inv * l.inv * l.inv);
+  g_dx += 2.0f * l.dx * g_d2;
+  g_dy += 2.0f * l.dy * g_d2;
+  // d = ca - cb
+  gax[0] += g_dx;
+  gay[0] += g_dy;
+  gbx[0] -= g_dx;
+  gby[0] -= g_dy;
+}
+
+// adjoint of the clamp cc = min(max(c, lo), hi): g added into c, lo and hi
+__device__ void clamp_bwd(float c, float lo, float hi, float g, float& g_c,
+                         float& g_lo, float& g_hi) {
+  float g_m, g_hi_, g_lo_, g_c_;
+  min_bwd(maxp(c, lo), hi, g, g_m, g_hi_);
+  max_bwd(c, lo, g_m, g_c_, g_lo_);
+  g_c += g_c_;
+  g_lo += g_lo_;
+  g_hi += g_hi_;
+}
+
+// adjoint of CbLane::run (l, recomputed, at the circle's centre c and
+// radius r and the box's lb, ub): g as for cc_lane_bwd; into the circle's
+// centre row (gc) and the box's rows 0 and 1 (gb)
+__device__ void cb_lane_bwd(const CbLane& l, float cx, float cy, float r,
+                            float lbx, float lby, float ubx, float uby,
+                            const float* g, float* gcx, float* gcy,
+                            float* gbx, float* gby) {
+  const float m = l.out.active ? 1.0f : 0.0f;
+  const float gpx = g[0] * m, gpy = g[1] * m;
+  float g_cx = 0.0f, g_cy = 0.0f, g_ccx = g[2], g_ccy = g[3];
+  float g_lbx = 0.0f, g_lby = 0.0f, g_ubx = 0.0f, g_uby = 0.0f;
+  if (l.perfect_vertex) {
+    // pv = -(c + r * uv - cc)
+    g_cx -= gpx;
+    g_cy -= gpy;
+    g_ccx += gpx;
+    g_ccy += gpy;
+    const float g_uvx = -gpx * r, g_uvy = -gpy * r;
+    // uv = where(dd == 0, (1, 0), dv * inv), inv = rsqrt(dd)
+    float g_dvx = 0.0f, g_dvy = 0.0f, g_inv = 0.0f;
+    if (l.dd != 0.0f) {
+      g_dvx += g_uvx * l.inv;
+      g_dvy += g_uvy * l.inv;
+      g_inv += g_uvx * l.dvx + g_uvy * l.dvy;
+    }
+    if (l.dd > 0.0f) {
+      const float g_dd = -0.5f * g_inv * (l.inv * l.inv * l.inv);
+      g_dvx += 2.0f * l.dvx * g_dd;
+      g_dvy += 2.0f * l.dvy * g_dd;
+    }
+    // dv = cc - c
+    g_ccx += g_dvx;
+    g_ccy += g_dvy;
+    g_cx -= g_dvx;
+    g_cy -= g_dvy;
+  } else {
+    // pf = (where(is2, -s2, where(is3, s3, 0)), where(is0, -s0, where(is1,
+    // s1, 0))); s0 = cy + r - lby, s1 = uby - (cy - r), s2 = cx + r - lbx,
+    // s3 = ubx - (cx - r)
+    if (l.is2) {
+      g_cx -= gpx;
+      g_lbx += gpx;
+    } else if (l.is3) {
+      g_ubx += gpx;
+      g_cx -= gpx;
+    }
+    if (l.is0) {
+      g_cy -= gpy;
+      g_lby += gpy;
+    } else if (l.is1) {
+      g_uby += gpy;
+      g_cy -= gpy;
+    }
+  }
+  clamp_bwd(cx, lbx, ubx, g_ccx, g_cx, g_lbx, g_ubx);
+  clamp_bwd(cy, lby, uby, g_ccy, g_cy, g_lby, g_uby);
+  gcx[0] += g_cx;
+  gcy[0] += g_cy;
+  gbx[0] += g_lbx;
+  gby[0] += g_lby;
+  gbx[1] += g_ubx;
+  gby[1] += g_uby;
+}
+
+// adjoint of AreaCbLane::run (l, recomputed): g as for cc_lane_bwd; into
+// the contained circle's centre row (gc) and the area box's rows 0 and 1
+// (gb).  pen = (-max(hx, 0) + max(lx, 0), -max(hy, 0) + max(ly, 0)) *
+// active with hx = cx + r - ubx, lx = lbx - (cx - r) and so on; each
+// branch of the contact point is the centre plus a constant.
+__device__ void area_cb_lane_bwd(const AreaCbLane& l, const float* g,
+                                 float* gcx, float* gcy, float* gbx,
+                                 float* gby) {
+  const float m = l.out.active ? 1.0f : 0.0f;
+  const float gpx = g[0] * m, gpy = g[1] * m;
+  float g_hx, g_hy, g_lx, g_ly, g_floor;
+  max_bwd(l.hx, 0.0f, -gpx, g_hx, g_floor);
+  max_bwd(l.hy, 0.0f, -gpy, g_hy, g_floor);
+  max_bwd(l.lx, 0.0f, gpx, g_lx, g_floor);
+  max_bwd(l.ly, 0.0f, gpy, g_ly, g_floor);
+  gcx[0] += g[2] + g_hx - g_lx;
+  gcy[0] += g[3] + g_hy - g_ly;
+  gbx[0] += g_lx;
+  gby[0] += g_ly;
+  gbx[1] -= g_hx;
+  gby[1] -= g_hy;
+}
+
+// whether any of the k cotangents g is nonzero
+__device__ bool any_nonzero(const float* g, int k) {
+  for (int i = 0; i < k; ++i) {
+    if (g[i] != 0.0f) return true;
+  }
+  return false;
+}
+
 __global__ void __launch_bounds__(THREADS)
 fused_step_bwd_kernel(const BwdArgs args, const StepArgs st,
                       const StepGrads out) {
@@ -301,24 +468,54 @@ fused_step_bwd_kernel(const BwdArgs args, const StepArgs st,
   Reverse r(args, w);
   r.run();
 
-  // 3. the SAT + clip adjoint of every pair
+  // 3. the lanes' adjoint of every pair, by its kind
   float gwx[MAX_PARTS * MAX_V], gwy[MAX_PARTS * MAX_V];
   for (int k = 0; k < st.P * MAX_V; ++k) gwx[k] = gwy[k] = 0.0f;
   for (int q = 0; q < st.npairs; ++q) {
     const int32_t* qi = st.pair_i + q * PAIR_COLS;
-    const size_t i0 = (size_t)qi[Q_LANE] * B + b, i1 = i0 + B;
-    const float g[8] = {args.dpen_x[i0], args.dpen_x[i1], args.dpen_y[i0],
-                        args.dpen_y[i1], args.dpt_x[i0],  args.dpt_x[i1],
-                        args.dpt_y[i0],  args.dpt_y[i1]};
-    bool any = false;
-    for (int k = 0; k < 8; ++k) any = any || g[k] != 0.0f;
-    if (!any) continue;
     const int pa = qi[Q_A] * MAX_V, pb = qi[Q_B] * MAX_V;
-    PairSat s;
-    s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
-          qi[Q_VB], qi[Q_MASK_B]);
-    pair_bwd(s, wx + pa, wy + pa, qi[Q_VA], wx + pb, wy + pb, qi[Q_VB], g,
-             gwx + pa, gwy + pa, gwx + pb, gwy + pb);
+    const size_t i0 = (size_t)qi[Q_LANE] * B + b;
+    const float ra = st.pair_f[2 * q], rb = st.pair_f[2 * q + 1];
+    if (qi[Q_KIND] == K_PP) {
+      const size_t i1 = i0 + B;
+      const float g[8] = {args.dpen_x[i0], args.dpen_x[i1], args.dpen_y[i0],
+                          args.dpen_y[i1], args.dpt_x[i0],  args.dpt_x[i1],
+                          args.dpt_y[i0],  args.dpt_y[i1]};
+      if (!any_nonzero(g, 8)) continue;
+      PairSat s;
+      s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
+            qi[Q_VB], qi[Q_MASK_B]);
+      pair_bwd(s, wx + pa, wy + pa, qi[Q_VA], wx + pb, wy + pb, qi[Q_VB], g,
+               gwx + pa, gwy + pa, gwx + pb, gwy + pb);
+      continue;
+    }
+    // a one-lane pair reads its own lane's cotangents only
+    const float g[4] = {args.dpen_x[i0], args.dpen_y[i0], args.dpt_x[i0],
+                        args.dpt_y[i0]};
+    if (!any_nonzero(g, 4)) continue;
+    switch (qi[Q_KIND]) {
+      case K_CC: {
+        CcLane l;
+        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], rb);
+        cc_lane_bwd(l, g, gwx + pa, gwy + pa, gwx + pb, gwy + pb);
+        break;
+      }
+      case K_CB: {
+        CbLane l;
+        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
+        cb_lane_bwd(l, wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1],
+                    wy[pb + 1], g, gwx + pa, gwy + pa, gwx + pb, gwy + pb);
+        break;
+      }
+      case K_AREA_CB: {
+        AreaCbLane l;
+        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
+        area_cb_lane_bwd(l, g, gwx + pa, gwy + pa, gwx + pb, gwy + pb);
+        break;
+      }
+      default:
+        break;
+    }
   }
 
   // 4. the vertices: into the terrain rows, or the bodies' poses
@@ -394,15 +591,14 @@ extern "C" int fused_step_bwd(
     const float* body_im, const float* body_ii,
     const int32_t* joint_body, const float* joint_f,
     float* scratch,
-    int P, int npairs, int V, int override_bits, int symplectic,
+    int P, int npairs, int lanes, int V, int override_bits, int symplectic,
     float gdx, float gdy,
     int B, int C, int n, int J, int iterations, int position_iterations,
     float dt, float baumgarte, float slop, float baumgarte_dt,
     float max_bias, int has_max_bias, void* stream) {
-  // polygon pairs only (two lanes each): the adjoints of the circle and box
-  // lanes are not here yet, and such a world is refused
-  if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C != 2 * npairs ||
-      B <= 0) {
+  // lanes: what the pairs' kinds give, two a pp pair and one any other
+  if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C != lanes ||
+      lanes < npairs || lanes > 2 * npairs || B <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const StepLayout L(C, n, iterations, position_iterations);

@@ -19,9 +19,10 @@ autograd its reverse-pass kernel is the backward; its plain version is
 this module's split step.  Neither falls back: on CUDA tensors a world the
 fused kernel does not run raises.
 
-Pair groups: ``pp`` (the SAT manifold), ``cc`` and ``cb`` (analytic, one
-lane a pair).  Not ported yet (raises ``NotImplementedError``): ``bb``,
-``cp``, ``bp`` and the area kernels (ROADMAP Queue 1 items 8b and 8f).
+Pair groups: ``pp`` (the SAT manifold), ``cc``, ``cb`` and ``area_cb``
+(analytic, one lane a pair).  Not ported yet (raises
+``NotImplementedError``): ``bb``, ``cp``, ``bp`` and the other area kernels
+(ROADMAP Queue 1 item 8f).
 """
 
 from __future__ import annotations
@@ -220,7 +221,7 @@ def build_static_tables(world) -> None:
     for g in world.table.groups:
         if g.kernel == "pp":
             Va, Vb, _, _ = _group_masks(world, g)
-        elif g.kernel in ("cc", "cb"):
+        elif g.kernel in _ANALYTIC:
             Va, Vb = _circle_box_rows(world, g)
             _radii(world, g)
         else:
@@ -482,6 +483,37 @@ def _cb_bm(cx, cy, r, lbx, lby, ubx, uby, eps=1e-6):
     return pen_x * active, pen_y * active, ccx, ccy, active
 
 
+def _area_cb_bm(cx, cy, r, lbx, lby, ubx, uby):
+    """Circle held inside an area box: the push back by how far the circle
+    pokes past each side (``max(., 0)`` of each, half the cotangent to each
+    side at a tie), and the contact point on the circle at the side it
+    pokes furthest past (ties: the earliest of right, top, left, bottom)."""
+    over_hx = _max_c(cx + r - ubx, 0.0)
+    over_hy = _max_c(cy + r - uby, 0.0)
+    over_lx = _max_c(lbx - (cx - r), 0.0)
+    over_ly = _max_c(lby - (cy - r), 0.0)
+    pen_x = -over_hx + over_lx
+    pen_y = -over_hy + over_ly
+    depth = torch.maximum(torch.maximum(over_hx, over_hy), torch.maximum(over_lx, over_ly))
+    active = depth > 0
+    # the deepest wall's surface point: a selection, it takes no cotangent
+    dhx = cx + r - ubx
+    dhy = cy + r - uby
+    dlx = lbx - (cx - r)
+    dly = lby - (cy - r)
+    best = torch.maximum(torch.maximum(dhx, dhy), torch.maximum(dlx, dly))
+    is_hx = best == dhx
+    is_hy = ~is_hx & (best == dhy)
+    is_lx = ~is_hx & ~is_hy & (best == dlx)
+    ptx = torch.where(is_hx, cx + r, torch.where(is_hy, cx, torch.where(is_lx, cx - r, cx)))
+    pty = torch.where(is_hx, cy, torch.where(is_hy, cy + r, torch.where(is_lx, cy, cy - r)))
+    return pen_x * active, pen_y * active, ptx, pty, active
+
+
+# the analytic one-lane kernels on circles' centre rows and boxes' (lb, ub)
+_ANALYTIC = ("cc", "cb", "area_cb")
+
+
 def _overlap_bm(alx, ahx, aly, ahy, blx, bhx, bly, bhy):
     """Batch-minor AABB overlap ``[G, B]`` (see collider.BROADPHASE_MARGIN)."""
     m = BROADPHASE_MARGIN
@@ -546,10 +578,11 @@ def collide_batched(
         return _side_verts(world, s, tuple(idx), vn)
 
     for g in world.table.groups:
-        if g.kernel in ("cc", "cb"):
-            # circles' centre rows and boxes' (lb, ub) rows; one lane a pair,
-            # weight 1, no partner; these kernels mask themselves, so the
-            # broadphase does not touch them
+        if g.kernel in _ANALYTIC:
+            # circles' centre rows and boxes' (lb, ub) rows (an area_cb pair's
+            # contained circle is side A, the area box side B); one lane a
+            # pair, weight 1, no partner; these kernels mask themselves, so
+            # the broadphase does not touch them
             Va, Vb = _circle_box_rows(world, g)
             axv, ayv = side(g.part_a, Va)
             bxv, byv = side(g.part_b, Vb)
@@ -557,15 +590,17 @@ def collide_batched(
             if g.kernel == "cc":
                 lane = _cc_bm(axv[:, 0], ayv[:, 0], ra, bxv[:, 0], byv[:, 0], rb)
             else:
-                lane = _cb_bm(axv[:, 0], ayv[:, 0], ra,
-                              bxv[:, 0], byv[:, 0], bxv[:, 1], byv[:, 1])
+                box_lane = _cb_bm if g.kernel == "cb" else _area_cb_bm
+                lane = box_lane(axv[:, 0], ayv[:, 0], ra,
+                                bxv[:, 0], byv[:, 0], bxv[:, 1], byv[:, 1])
             pieces.append((*lane, torch.ones_like(lane[0])))
             continue
         if g.kernel != "pp":
             raise NotImplementedError(
                 f"pair-group kernel {g.kernel!r} is not ported yet: bb, cp, bp "
-                "and the area kernels (ROADMAP Queue 1 items 8b and 8f); the "
-                "batched torch path runs 'pp', 'cc' and 'cb' groups"
+                "and the area kernels other than area_cb (ROADMAP Queue 1 item "
+                "8f); the batched torch path runs 'pp', 'cc', 'cb' and "
+                "'area_cb' groups"
             )
         Gn = g.size
         Va, Vb, ema, emb = _group_masks(world, g)

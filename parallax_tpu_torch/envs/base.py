@@ -1,8 +1,12 @@
 """Environment API: the per-step output bundle and the base class.
 
-The port of what the batched plane-space rollout needs from
-``envs/base.py``.  The per-world ``reset``/``step`` composition and the
-continuous-time evaluation are not ported yet (ROADMAP Queue 1 item 11).
+The port of what the batched plane-space paths need from
+``envs/base.py``: ``TimeStep`` and ``Environment``.  ``reset_batch`` and
+``step_batch`` come from ``envs/plane_env.PlaneEnvMixin``, on the
+rollout's own step.  The per-world ``reset``/``step`` composition,
+``BatchedEnvironmentMixin`` with its ``vmap(step_fn)`` default of
+``step_fn_batch``, and the continuous-time evaluation (``Control``,
+``Judge``) are not ported yet (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -40,3 +44,4 @@ class Environment:
 
     def reset_fn_batch(self, keys):
         raise NotImplementedError
+

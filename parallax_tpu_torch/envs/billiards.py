@@ -13,9 +13,8 @@ cue ball; reward +1 per newly potted object ball, -1 for potting the cue
 The contact solve runs as the CUDA kernel on a GPU
 (``WorldConfig.use_cuda_solver``).  ``BilliardsConfig(use_cuda_fused=True)``
 runs the whole step as the fused kernel (``ops/fused_step.py``, the twin of
-``use_pallas_fused``) instead: it takes at most 16 parts (``n_object`` up
-to 11), and on CUDA tensors it raises under autograd until the fused
-reverse pass has its circle and box lanes (ROADMAP Queue 1 item 8d).
+``use_pallas_fused``) instead, and trains through its reverse pass: it
+takes at most 16 parts (``n_object`` up to 11).
 
 Not ported: ``BilliardsConfig.rolled`` (``engine/rolled.py``, which the
 port does not take over) and the per-world ``reset_fn``/``step_fn``
@@ -70,8 +69,8 @@ class BilliardsConfig:
     living_cost: float = 0.001
     solver_iterations: int = 4
     position_iterations: int = 2
-    # run the whole physics step as the fused CUDA kernel (cc/cb lanes); at
-    # most 16 parts, and no autograd on the card until ROADMAP item 8d
+    # run the whole physics step as the fused CUDA kernel (cc/cb lanes, and
+    # their reverse pass under autograd); at most 16 parts
     use_cuda_fused: bool = False
     # the JAX package's offset-rolled all-pairs physics (engine/rolled.py):
     # not ported, so True raises

@@ -7,7 +7,10 @@ overrides ``plane_pack``, ``plane_pre``, ``plane_physics``, ``plane_obs``
 and ``plane_fresh``.  Everything else is generic: the NaN watchdog,
 step-limit truncation, the auto-reset key tree (``split(key) -> (reset,
 carry)``), the done-merge of fresh and live planes, and chunked waves.
-PyTorch runs eagerly, so ``lax.scan`` becomes a Python loop.
+PyTorch runs eagerly, so ``lax.scan`` becomes a Python loop.  The same
+step gives ``step_batch``, one batched step of batch-major states; it
+stands in for JAX's ``BatchedEnvironmentMixin.step_batch`` over
+``step_fn_batch``, with the same watchdog, key tree and results.
 """
 
 from __future__ import annotations
@@ -155,6 +158,16 @@ class PlaneEnvMixin:
             key=carry_keys,
         )
         return out, ts
+
+    def reset_batch(self, keys):
+        return self.reset_fn_batch(keys)
+
+    def step_batch(self, states, actions):
+        """One batched step of batch-major ``states`` through the rollout's
+        own step (the watchdog and the auto-reset included):
+        ``(new_states, TimeStep)``."""
+        ps, ts = self._step_planes(self._to_planes(states), actions)
+        return self._from_planes(ps), ts
 
     def rollout_batch(self, states, policy_fn, n_steps, policy_params=None,
                       max_chunk=None, mesh=None, remat_steps=False,

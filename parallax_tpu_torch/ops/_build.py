@@ -145,7 +145,7 @@ _SIGNATURES = {
         + [_P] * 4  # part_i, part_lv, pair_i, pair_f
         + [_P] * 9  # the solver operands, as for contact_solve_fwd
         + [_P] * 2  # geo, scratch
-        + [_I] * 5  # P, pairs, V, override_bits, symplectic
+        + [_I] * 6  # P, pairs, lanes, V, override_bits, symplectic
         + [_F] * 2  # gravity x and y times dt
         + [_I] * 6  # B, C, n, J, iterations, position_iterations
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
@@ -160,7 +160,7 @@ _SIGNATURES = {
         + [_P] * 4  # part_i, part_lv, pair_i, pair_f
         + [_P] * 9  # the solver operands, as for contact_solve_fwd
         + [_P]  # scratch
-        + [_I] * 5  # P, pairs, V, override_bits, symplectic
+        + [_I] * 6  # P, pairs, lanes, V, override_bits, symplectic
         + [_F] * 2  # gravity x and y times dt
         + [_I] * 6  # B, C, n, J, iterations, position_iterations
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias

@@ -2,20 +2,21 @@
 
 ``csrc/fused_step.cu`` replaces ``parallax_tpu/ops/pallas_step.py``'s
 ``_step_kernel`` for worlds whose pair groups are polygon-polygon (``pp``),
-circle-circle (``cc``) and circle-box (``cb``): one launch runs integration
-and gravity, the world-frame vertices (with the per-world terrain
-override), each pair's contact lanes (the SAT manifold of a ``pp`` pair,
-the analytic lane of a ``cc`` or ``cb`` pair), the contact solve and the
-joints, one CUDA thread per world.  The contact geometry stays inside the
-kernel; it returns the body planes and the ``[C, B]`` active flags.  Its
-plain version, :func:`fused_step_plain`, is the split step of
-``engine.batched`` with the plain solver.  ``csrc/fused_step_bwd.cu``
-replaces its reverse pass, ``_step_bwd_kernel``, for ``pp`` worlds: it
-recomputes the step from the primal inputs and returns the cotangents of
-the body planes and of the terrain planes; its plain version,
-:func:`fused_step_bwd_plain`, is autograd of :func:`fused_step_plain`.  The
-reverse pass of the ``cc`` and ``cb`` lanes is not ported yet (ROADMAP
-Queue 1 item 8d): on CUDA tensors such a world raises under autograd.
+circle-circle (``cc``), circle-box (``cb``) and circle-in-area-box
+(``area_cb``): one launch runs integration and gravity, the world-frame
+vertices (with the per-world terrain override), each pair's contact lanes
+(the SAT manifold of a ``pp`` pair, the analytic lane of a ``cc``, ``cb``
+or ``area_cb`` pair), the contact solve and the joints, one CUDA thread per
+world.  The contact geometry stays inside the kernel; it returns the body
+planes and the ``[C, B]`` active flags.  Its plain version,
+:func:`fused_step_plain`, is the split step of ``engine.batched`` with the
+plain solver.  ``csrc/fused_step_bwd.cu`` replaces its reverse pass,
+``_step_bwd_kernel``, for the same four kinds: it recomputes the step from
+the primal inputs and returns the cotangents of the body planes and of the
+terrain planes; its plain version, :func:`fused_step_bwd_plain`, is
+autograd of :func:`fused_step_plain`.  The JAX kernels' box-box (``bb``)
+lanes are not ported yet (ROADMAP Queue 1 item 8f): on CUDA tensors such a
+world raises.
 
 :func:`physics_core_fused` chooses by the tensors' device and nothing
 else: on CPU tensors it runs the plain version, and autograd of its plain
@@ -30,7 +31,6 @@ only the launches themselves add to them.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -42,17 +42,16 @@ from parallax_tpu_torch.geometry.shapes import BOX, MAX_VERTS, edge_mask_for
 launches = 0
 bwd_launches = 0
 
-# pair-group kernels the fused kernel runs; the JAX kernel's bb and area_cb
-# lanes come with RoboCup (ROADMAP Queue 1 items 8b, 8c and 8f)
-FUSED_KERNELS = ("pp", "cc", "cb")
-# the kernels' reverse pass walks back these lanes only (item 8d)
-FUSED_BWD_KERNELS = ("pp",)
+# pair-group kernels the fused kernel and its reverse pass run; the JAX
+# kernel's bb lanes are not ported yet (ROADMAP Queue 1 item 8f)
+FUSED_KERNELS = ("pp", "cc", "cb", "area_cb")
 # the kernels' per-thread limits (csrc/fused_step.cuh, contact_solver.cuh);
 # the launch refuses more as well
 MAX_PARTS = 16
 MAX_BODIES = 64
-# kinds of pair_i's Q_KIND column (csrc/fused_step.cuh PairKind)
-_KINDS = {"pp": 0, "cc": 1, "cb": 2}
+# kinds of pair_i's Q_KIND column, in the order of csrc/fused_step.cuh's
+# PairKind
+_KINDS = {"pp": 0, "cc": 1, "cb": 2, "area_cb": 3}
 
 
 def supports_fused_step(world) -> bool:
@@ -70,16 +69,16 @@ def supports_fused_step(world) -> bool:
     return "pp" not in kernels or not world.config.broadphase
 
 
-def check_fused_step(world, grad: bool = False) -> None:
+def check_fused_step(world) -> None:
     """Raise, saying why, unless the fused kernels run ``world`` on the card.
 
     Beyond :func:`supports_fused_step`, a world may have at most
     ``MAX_PARTS`` = 16 parts and ``MAX_BODIES`` = 64 bodies: the kernel
     keeps every part's vertices in per-thread arrays.  So billiards with 47
     object balls (52 parts) raises here, where the JAX package silently
-    takes its split step (``engine/batched.py:1158-1167``).  With ``grad``
-    (the step runs under autograd), every group must also be one that the
-    reverse-pass kernel walks back (``FUSED_BWD_KERNELS``)."""
+    takes its split step (``engine/batched.py:1158-1167``).  The reverse
+    pass walks back every kind of ``FUSED_KERNELS``, so the same gate
+    serves under autograd."""
     from parallax_tpu_torch.engine.batched import check_batched_support
 
     check_batched_support(world.config, "the fused step")
@@ -100,13 +99,6 @@ def check_fused_step(world, grad: bool = False) -> None:
             f"the fused step kernel takes at most {MAX_BODIES} bodies; this "
             f"world has {world.n_bodies}"
         )
-    no_bwd = sorted(kernels - set(FUSED_BWD_KERNELS))
-    if grad and no_bwd:
-        raise NotImplementedError(
-            f"the fused step's reverse-pass kernel walks back {FUSED_BWD_KERNELS} "
-            f"lanes; the {no_bwd} lanes are not ported yet (ROADMAP Queue 1 item "
-            "8d): train this world on the split step (use_cuda_fused=False)"
-        )
 
 
 def _check_kinds(world) -> set:
@@ -117,7 +109,7 @@ def _check_kinds(world) -> set:
     if unported:
         raise NotImplementedError(
             f"the fused step kernel runs {FUSED_KERNELS} pair groups; "
-            f"{unported} are not ported yet (ROADMAP Queue 1 items 8b, 8c and 8f)"
+            f"{unported} are not ported yet (ROADMAP Queue 1 item 8f)"
         )
     return kernels
 
@@ -132,20 +124,22 @@ class FusedOperands(NamedTuple):
     part_i: torch.Tensor  # [P, 3] int32: owning body, rotates, vertices read
     part_lv: torch.Tensor  # [P, MAX_VERTS, 2] f32 local vertices
     # [pairs, 8] int32: parts a, b, Va, Vb, edge-mask bits of a and b, first
-    # lane, kind (pp 0, cc 1, cb 2)
+    # lane, kind (_KINDS)
     pair_i: torch.Tensor
-    pair_f: torch.Tensor  # [pairs, 2] f32: radii of parts a and b
+    # [pairs, 2] f32: radii of parts a and b (an area_cb pair: the contained
+    # circle's, and 0 for the area box)
+    pair_f: torch.Tensor
 
 
 def fused_operands(world) -> FusedOperands:
     """Built once per world: each part's body, rotate flag and the number of
     vertex rows its groups read (their trimmed ``Va``/``Vb``: a circle's
-    centre and a box's ``lb``/``ub`` for ``cc`` and ``cb``, as at
+    centre and a box's ``lb``/``ub`` for the one-lane kinds, as at
     ``pallas_step.py:108-113``), and per pair of the table, in lane order,
     its parts, trimmed row counts, edge masks (``engine.batched._group_masks``)
     as bits, its first lane (groups concatenate in ``world.table.groups``
-    order: two lanes a ``pp`` pair, one a ``cc`` or ``cb`` pair), its kind
-    and its two radii.  A world with a group the kernel has no lanes for
+    order: two lanes a ``pp`` pair, one a ``cc``, ``cb`` or ``area_cb``
+    pair), its kind and its two radii.  A world with a group the kernel has no lanes for
     raises, so the operands never carry a kind the kernel would misread."""
 
     def build():
@@ -168,7 +162,7 @@ def fused_operands(world) -> FusedOperands:
                 pairs.append([a, b, Va, Vb, _bits(ma), _bits(mb), lane,
                               _KINDS[g.kernel]])
                 radii.append([radius[a], radius[b]])
-                lane += 2 if g.kernel == "pp" else 1
+                lane += _width(g.kernel)
         rotate = [int(k != BOX) for k in parts.kind]
         part_i = np.stack([np.asarray(parts.body), rotate, nv], axis=1).astype(np.int32)
 
@@ -187,6 +181,17 @@ def fused_operands(world) -> FusedOperands:
 
 def _bits(mask) -> int:
     return int(sum(1 << v for v, on in enumerate(mask) if on))
+
+
+def _width(kernel: str) -> int:
+    """Lanes a pair of ``kernel`` writes: two for the SAT manifold, else one."""
+    return 2 if kernel == "pp" else 1
+
+
+def _lane_count(world) -> int:
+    """The lanes the world's pair kinds give, which the launches check
+    against the contact table's ``C``."""
+    return sum(g.size * _width(g.kernel) for g in world.table.groups)
 
 
 # ---------------------------------------------------------------------------
@@ -280,11 +285,8 @@ def physics_core_fused(world, s, terrain_override=None, dt=None, accel=None):
                    torch.float32, device)
     tx, ty = _terrain_planes(override, tparts, s.px)
     statics = (world, tparts, dt, accel)
-    grad = torch.is_grad_enabled() and any(x.requires_grad for x in (*s, tx, ty))
-    # refuses, before any launch, a world whose lanes the reverse pass does
-    # not walk back: never a gradient it did not compute
-    check_fused_step(world, grad=grad)
-    if grad:
+    check_fused_step(world)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (*s, tx, ty)):
         *out, active = _FusedStep.apply(statics, tx, ty, *s)
         return type(s)(*out), _exported(active)
     out, active = _step_cuda(statics, s, tx, ty)
@@ -349,7 +351,7 @@ def _launch_operands(statics, s, tx, ty):
         gx, gy = gx + accel[0], gy + accel[1]
     stream = torch.cuda.current_stream(device).cuda_stream
     scalars = (
-        P, len(fops.pair_i), MAX_VERTS, sum(1 << p for p in tparts),
+        P, len(fops.pair_i), _lane_count(world), MAX_VERTS, sum(1 << p for p in tparts),
         int(cfg.integrator == "symplectic"), float(gx * dt), float(gy * dt),
         *_tail(world, cfg.solver_iterations, cfg.position_iterations, dt, cfg.contact,
                B, C, n, stream),
@@ -391,7 +393,7 @@ def fused_step_bwd(world, s, terrain_override, grads, dt=None, accel=None):
         return fused_step_bwd_plain(world, s, terrain_override, grads, dt, accel)
     if device.type != "cuda":
         raise ValueError(f"fused step: no kernel for device {device}")
-    check_fused_step(world, grad=True)
+    check_fused_step(world)
     override = terrain_override or {}
     tparts = tuple(sorted(override))
     tx, ty = _terrain_planes(override, tparts, s.px)

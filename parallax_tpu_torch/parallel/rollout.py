@@ -134,14 +134,20 @@ def make_train_step(env, policy_fn: Callable, optimizer: torch.optim.Optimizer,
     metrics)``: one rollout of ``n_steps``, the backward through it, and one
     optimizer update of ``params`` in place.  ``metrics`` holds ``loss``
     and ``mean_return``; the final states are detached, ready for the next
-    step."""
+    step.  A loss that does not depend on ``params`` (an env whose reward
+    has no gradient path, like billiards' pot counts) gets zero gradients,
+    as from ``jax.value_and_grad``, and the update steps with them."""
     loss_fn = make_loss_fn(env, policy_fn, n_steps, checkpoint_segments,
                            discount, max_chunk, mesh, remat_steps)
 
     def train_step(params, states):
         optimizer.zero_grad(set_to_none=True)
         loss, (final, mean_ret) = loss_fn(params, states)
-        loss.backward()
+        if loss.requires_grad:
+            loss.backward()
+        else:
+            for p in params.values():
+                p.grad = torch.zeros_like(p)
         optimizer.step()
         final = tree_map(torch.Tensor.detach, final)
         return params, final, {"loss": loss.detach(), "mean_return": mean_ret.detach()}

@@ -22,6 +22,17 @@ def _f32(x, device):
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
+def _bodies(d: dict, device) -> BodyState:
+    return BodyState(*(_f32(d[f"bodies.{f}"], device) for f in BodyState._fields))
+
+
+def _key(d: dict, device):
+    key = np.asarray(d["key"])
+    if key.dtype != np.uint32:
+        raise ValueError(f"key must be uint32, got {key.dtype}")
+    return torch.tensor(key.astype(np.int64), device=device)
+
+
 def lander_state_from_numpy(d: dict, device="cuda"):
     """``{field: array}`` -> ``LanderState``.  The fields are
     ``bodies.pos``, ``bodies.vel``, ``bodies.angle``, ``bodies.omega``,
@@ -30,19 +41,11 @@ def lander_state_from_numpy(d: dict, device="cuda"):
     from parallax_tpu_torch.envs.lunar_lander import LanderState
 
     device = resolve_device(device)
-    key = np.asarray(d["key"])
-    if key.dtype != np.uint32:
-        raise ValueError(f"key must be uint32, got {key.dtype}")
     return LanderState(
-        bodies=BodyState(
-            pos=_f32(d["bodies.pos"], device),
-            vel=_f32(d["bodies.vel"], device),
-            angle=_f32(d["bodies.angle"], device),
-            omega=_f32(d["bodies.omega"], device),
-        ),
+        bodies=_bodies(d, device),
         terrain=_f32(d["terrain"], device),
         t=torch.tensor(np.asarray(d["t"], np.int32), device=device),
-        key=torch.tensor(key.astype(np.int64), device=device),
+        key=_key(d, device),
         prev_shaping=_f32(d["prev_shaping"], device),
         leg_contacts=_f32(d["leg_contacts"], device),
     )
@@ -67,6 +70,30 @@ def lander_state_to_numpy(state) -> dict:
         "prev_shaping": a(state.prev_shaping),
         "leg_contacts": a(state.leg_contacts),
     }
+
+
+def robocup_state_from_numpy(d: dict, device="cuda"):
+    """``{field: array}`` -> ``RoboCupState``.  The fields are
+    ``bodies.pos``, ``bodies.vel``, ``bodies.angle``, ``bodies.omega``,
+    ``t`` and ``key`` (uint32)."""
+    from parallax_tpu_torch.envs.robocup import RoboCupState
+
+    device = resolve_device(device)
+    return RoboCupState(
+        bodies=_bodies(d, device),
+        t=torch.tensor(np.asarray(d["t"], np.int32), device=device),
+        key=_key(d, device),
+    )
+
+
+def robocup_state_to_numpy(state) -> dict:
+    """``RoboCupState`` -> ``{field: array}`` (the fields of
+    :func:`robocup_state_from_numpy`)."""
+    out = {f"bodies.{f}": x.detach().cpu().numpy()
+           for f, x in zip(BodyState._fields, state.bodies)}
+    out["t"] = state.t.detach().cpu().numpy()
+    out["key"] = state.key.detach().cpu().numpy().astype(np.uint32)
+    return out
 
 
 def soa_from_numpy(planes, device="cuda") -> _SoA:

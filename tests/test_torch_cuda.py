@@ -12,16 +12,24 @@ import numpy as np
 import pytest
 import torch
 from torch_scenarios import (
+    active_kinds,
+    area_tie_case,
+    billiards_pairs_state,
+    cb_tie_case,
     mixed_state,
     mixed_world,
     overlap_state,
+    robocup_overlap_state,
     tie_fused_case,
     tie_solve_case,
 )
 
 from parallax_tpu_torch.engine import batched as tb
+from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
 from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
 from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
+from parallax_tpu_torch.envs.robocup import RoboCup, RoboCupConfig
+from parallax_tpu_torch.geometry.shapes import box
 from parallax_tpu_torch.ops import contact_solver, fused_step
 from parallax_tpu_torch.parallel import rollout
 
@@ -438,24 +446,134 @@ def test_reverse_kernels_at_a_clamp_tie_match_plain_vjps_on_card(cuda_env, fused
 
 @pytest.mark.cuda
 def test_fused_step_on_circle_lanes_refuses_autograd_on_card(billiards_env):
-    """The reverse-pass kernel walks back pp lanes only: on a cc/cb world
-    under autograd the fused step raises at the forward, naming ROADMAP
-    item 8d, before any launch; without grad it runs.  A world over the
-    kernel's 16 parts raises too.  Neither falls back to the split step."""
+    """The reverse-pass kernel walks back the cc and cb lanes: under
+    autograd the fused step on billiards launches the forward kernel, and
+    its backward the reverse-pass kernel, and no solver kernel.  What the
+    kernels do not run raises before any launch, under autograd or not: a
+    box-box world (ROADMAP item 8f) and a world over the kernel's 16 parts.
+    Neither falls back to the split step."""
     world = billiards_env.world
     s = overlap_state(billiards_env, 256, 3, 1.0, 0.03, 0.02)
     vx = s.vx.clone().requires_grad_(True)
-    f0, s0 = fused_step.launches, contact_solver.launches
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8d"):
-        fused_step.physics_core_fused(world, s._replace(vx=vx))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8d"):
-        fused_step.fused_step_bwd(world, s, None, s)
-    assert (fused_step.launches, contact_solver.launches) == (f0, s0)
-    with torch.no_grad():
-        out, _ = fused_step.physics_core_fused(world, s._replace(vx=vx))
-    assert fused_step.launches == f0 + 1 and torch.isfinite(out.px).all()
+    f0, b0, s0 = fused_step.launches, fused_step.bwd_launches, contact_solver.launches
+    out, _ = fused_step.physics_core_fused(world, s._replace(vx=vx))
+    (g,) = torch.autograd.grad(out.px.sum(), vx)
+    assert (fused_step.launches, fused_step.bwd_launches) == (f0 + 1, b0 + 1)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    bodies = [BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))]),
+              BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf, inertia=np.inf,
+                      position=(0.0, -0.5))]
+    bb, st = World.build(bodies, WorldConfig(broadphase=False), device="cuda")
+    sb = tb._to_soa(type(st)(*(x[None] for x in st)))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
+        fused_step.physics_core_fused(bb, sb._replace(px=sb.px.clone().requires_grad_(True)))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
+        fused_step.physics_core_fused(bb, sb)
     big = Billiards(BilliardsConfig(n_object=47, use_cuda_fused=True), device="cuda")
     sb = overlap_state(big, 128, 3, 1.0, 0.03, 0.02)
     with pytest.raises(ValueError, match="at most 16 parts"):
         fused_step.physics_core_fused(big.world, sb)
-    assert fused_step.launches == f0 + 1 and contact_solver.launches == s0
+    assert (fused_step.launches, fused_step.bwd_launches) == (f0 + 1, b0 + 1)
+    assert contact_solver.launches == s0
+
+
+@pytest.fixture(scope="module")
+def robocup_env():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    return RoboCup(RoboCupConfig(use_cuda_fused=True), device="cuda")
+
+
+@pytest.mark.cuda
+def test_fused_area_lanes_match_plain_version_on_card(robocup_env):
+    """The fused kernel's area_cb lanes, with RoboCup's cc and cb lanes,
+    against its plain version on the same CUDA tensors: the overlap state
+    at B=1024, flags equal, planes within atol 1e-5, every kind active."""
+    world = robocup_env.world
+    s = robocup_overlap_state(robocup_env, 1024)
+    before = fused_step.launches
+    got_s, got_c = fused_step.physics_core_fused(world, s)
+    assert fused_step.launches == before + 1
+    want_s, want_c = fused_step.fused_step_plain(world, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got_c.active, want_c.active)
+    on = active_kinds(world, want_c.active)
+    assert min(on.values()) > 0 and set(on) == {"cc", "cb", "area_cb"}, on
+    for f, x, y in zip(got_s._fields, got_s, want_s):
+        err = (x - y).abs().max().item()
+        assert err <= ATOL, (f, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["robocup", "billiards8", "mixed", "cb_tie", "area_tie"])
+def test_fused_reverse_circle_lanes_match_plain_vjp_on_card(robocup_env, billiards_env, case):
+    """The reverse-pass kernel's cc, cb and area_cb lanes against autograd
+    of the plain version on the card, seeded cotangents: RoboCup's overlap
+    state, billiards' pairs state (whose lanes sit near no kink that
+    float32 rounding may cross, unlike its pile), the world that mixes cc,
+    cb and pp groups (its lane offsets), at B=1024, and the clamp and floor
+    tie cases at B=1.  rtol 2e-4, atol 1e-5."""
+    B = 1024
+    if case == "robocup":
+        world, s = robocup_env.world, robocup_overlap_state(robocup_env, B)
+    elif case == "billiards8":
+        world, s = billiards_env.world, billiards_pairs_state(billiards_env, B)
+    elif case == "mixed":
+        world, state = mixed_world("cuda")
+        s = mixed_state(world, state, B)
+    elif case == "cb_tie":
+        world = billiards_env.world
+        s, cot = cb_tie_case(billiards_env, "cuda")
+    else:
+        world = robocup_env.world
+        s, cot = area_tie_case(robocup_env, "cuda")
+    if not case.endswith("tie"):
+        cot = tb._SoA(*(torch.randn(x.shape, generator=torch.Generator().manual_seed(k)).cuda()
+                        for k, x in enumerate(s)))
+    before = fused_step.bwd_launches
+    got = fused_step.fused_step_bwd(world, s, None, cot)
+    assert fused_step.bwd_launches == before + 1
+    want = fused_step.fused_step_bwd_plain(world, s, None, cot)
+    torch.cuda.synchronize()
+    for f, x, y in zip(s._fields, got[0], want[0]):
+        assert torch.isfinite(x).all(), f
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL, msg=f)
+    assert all(x.abs().max() > 0 for x in got[0][:4])
+
+
+@pytest.mark.cuda
+def test_robocup_train_on_card_matches_cpu(robocup_env):
+    """RoboCup's loss and policy gradients (B=64, h=8, from the overlap
+    state) on the card, split and fused, against the CPU: loss 1e-5 and
+    each gradient 1e-4 relative in norm.  The fused path launches the
+    fused kernels only."""
+    B, H = 64, 8
+    rng = np.random.default_rng(0)
+    arrays = {"w1": rng.standard_normal((28, 32)) * 0.3, "b1": np.zeros(32),
+              "w2": rng.standard_normal((32, 18)) * 0.1, "b2": np.zeros(18)}
+
+    def policy(p, obs):
+        return torch.tanh(torch.tanh(obs @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"])
+
+    res = {}
+    for label, fused, dev in (("cpu", False, "cpu"), ("split", False, "cuda"),
+                              ("fused", True, "cuda")):
+        env = RoboCup(RoboCupConfig(use_cuda_fused=fused), device=dev)
+        k = np.random.default_rng(1).integers(0, 2**32, (B, 2), dtype=np.uint32)
+        st = env.reset_fn_batch(torch.from_numpy(k.astype(np.int64)).to(dev))
+        st = st._replace(bodies=tb._from_soa(robocup_overlap_state(env, B)))
+        p = {n: torch.tensor(a, dtype=torch.float32, device=dev).requires_grad_(True)
+             for n, a in arrays.items()}
+        counts = (contact_solver.launches, fused_step.launches, fused_step.bwd_launches)
+        loss, _ = rollout.make_loss_fn(env, policy, H, checkpoint_segments=2)(p, st)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, list(p.values()))]
+        counts = tuple(a - b for a, b in zip(
+            (contact_solver.launches, fused_step.launches, fused_step.bwd_launches), counts))
+        res[label] = (loss.item(), grads, counts)
+    loss_c, grads_c, _ = res["cpu"]
+    assert res["split"][2][1:] == (0, 0) and res["fused"][2] == (0, 2 * H, H)
+    for label in ("split", "fused"):
+        loss_g, grads_g, _ = res[label]
+        assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), label
+        for a, b in zip(grads_g, grads_c):
+            assert (a - b).norm() <= 1e-4 * b.norm(), label

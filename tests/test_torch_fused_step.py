@@ -105,7 +105,7 @@ def test_lander_refuses_the_fused_step_with_broadphase():
 
 def test_gate_names_the_roadmap_item_for_unported_lanes():
     # a box on a static box: a bb group, whose fused lanes are not ported
-    # (circle-box lanes are, since the billiards slice)
+    # (circle-box and circle-in-area lanes are)
     bodies = [
         BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))], position=(0.0, 0.0)),
         BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf,
@@ -114,10 +114,10 @@ def test_gate_names_the_roadmap_item_for_unported_lanes():
     world, _ = World.build(bodies, WorldConfig(broadphase=False), device="cpu")
     assert [g.kernel for g in world.table.groups] == ["bb"]
     assert not fused_step.supports_fused_step(world)
-    with pytest.raises(NotImplementedError, match="Queue 1 items 8b, 8c and 8f"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
         fused_step.check_fused_step(world)
     # nor do the kernel's operands encode lanes it would misread
-    with pytest.raises(NotImplementedError, match="Queue 1 items 8b, 8c and 8f"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
         fused_step.fused_operands(world)
 
 

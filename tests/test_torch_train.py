@@ -330,3 +330,37 @@ def test_trainer_entry_point_runs_on_cpu(capsys):
     assert "device=cpu" in out and out.count("step ") == 1
     assert np.isfinite(metrics["loss"].item())
     assert all(torch.isfinite(p).all() for p in params.values())
+
+
+def test_robocup_trainer_entry_point_runs_on_cpu(capsys):
+    from parallax_tpu_torch.examples import train_robocup
+
+    params, metrics = train_robocup.main(
+        ["--steps", "1", "--batch", "4", "--horizon", "4", "--fused", "--device", "cpu"]
+    )
+    out = capsys.readouterr().out
+    assert "device=cpu" in out and "fused=True" in out and out.count("step ") == 1
+    assert np.isfinite(metrics["loss"].item())
+    assert all(torch.isfinite(p).all() for p in params.values())
+
+
+def test_reward_without_a_gradient_path_gives_zero_grads():
+    """Billiards' reward counts pots and a living cost, so the train loss
+    does not depend on the policy: the train step gives zero gradients, as
+    ``jax.value_and_grad`` does for the JAX package's ``bench.py --train
+    --all`` line, and Adam steps with them, leaving the policy as it was."""
+    from parallax_tpu_torch.envs.billiards import Billiards
+
+    env = Billiards(device="cpu")
+    rng = np.random.default_rng(0)
+    arrays = {"w": (rng.standard_normal((env.observation_size, 2)) * 0.3).astype(np.float32)}
+    params = {k: torch.from_numpy(v.copy()).requires_grad_(True) for k, v in arrays.items()}
+    opt = rollout.adam(params, 3e-3)
+    step = rollout.make_train_step(env, lambda p, obs: torch.tanh(obs @ p["w"]), opt, 4)
+    keys = rng.integers(0, 2**32, (4, 2), dtype=np.uint32)
+    st = env.reset_fn_batch(torch.from_numpy(keys.astype(np.int64)))
+    new, final, metrics = step(params, st)
+    assert np.isfinite(metrics["loss"].item()) and final.t.tolist() == [4, 4, 4, 4]
+    assert (new["w"].grad == 0).all()
+    np.testing.assert_array_equal(new["w"].detach().numpy(), arrays["w"])
+    assert opt.state[new["w"]]["step"].item() == 1

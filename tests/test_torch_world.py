@@ -90,7 +90,7 @@ def test_unported_kernels_and_modes_raise():
     ]
     world, st = World.build(bodies, WorldConfig(), device="cpu")
     s = _to_soa(type(st)(*(x[None] for x in st)))
-    with pytest.raises(NotImplementedError, match="Queue 1 items 8b and 8f"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
         physics_core(world, s)
     ball = [BodyDef(shapes=[circle(0.3)], position=(0.0, 0.0))] + bodies[1:]
     world_cb, _ = World.build(ball, WorldConfig(), device="cpu")
