@@ -34,7 +34,13 @@ the card agrees with the same run on the CPU:
   28-32-18 policy (the solve kernel and its reverse pass, or the fused
   kernel and its reverse pass, whose cc, cb and area_cb lanes it walks
   back); and the fused reverse pass on billiards8 under a state objective
-  (``cue_loss_fn``: billiards' own reward has no gradient path).
+  (``cue_loss_fn``: billiards' own reward has no gradient path);
+* ``engine.batched.step_batched`` on user-built worlds: the crate pile
+  (``tests/torch_scenarios.py:crate_world``: a floor, two walls, 8 crates,
+  3 balls, 88 one-lane pairs) at B=8192, 100 steps on the split step (the
+  solve kernel) and on the fused step (its bb lanes, no solver launch),
+  and the gradient of ``crate_kick_loss`` through 100 steps (the reverse
+  kernels); and the JAX tests' mixed and area worlds on the split step.
 
 It prints the card's name and power limit, the timings, one JSON line of
 per-kernel results and, last, one JSON line ``{"ok": true, "device":
@@ -154,7 +160,7 @@ def fused_bound_ms(world, override_parts, n_active, B):
     whether or not it touches (edge axes 9 each; per axis the projections
     of both polygons, 3 a vertex and 2 a min/max, then 4 to compare; 4 a
     vertex for the reference edges; about 85 for the clip and the lanes),
-    every circle pair its lane (``LANE_OPS``), every rotated
+    every circle or box pair its lane (``LANE_OPS``), every rotated
     vertex 8, every body 8 to integrate and about 40 for its cosine and
     sine, and the solve and joints as ``solver_bound_ms`` counts them for
     the run's active lanes."""
@@ -192,7 +198,7 @@ def fused_bwd_bound_ms(world, override_parts, n_active, touched, B):
     are skipped) runs its lanes again and their adjoint: for a polygon pair
     its SAT and about 17 a vertex of both polygons (the projection chains
     replayed and walked back) and 160 for the clips, the tangent and the
-    edge normal; for a circle pair its lane and ``LANE_BWD_OPS``."""
+    edge normal; for a circle or box pair its lane and ``LANE_BWD_OPS``."""
     from parallax_tpu_torch.geometry.shapes import MAX_VERTS
     from parallax_tpu_torch.ops.fused_step import fused_operands
 
@@ -216,17 +222,17 @@ def fused_bwd_bound_ms(world, override_parts, n_active, touched, B):
             nbytes, ops)
 
 
-# float32 operations of one circle-circle, circle-box and circle-in-area
-# lane (pair kinds 1, 2, 3), counted from fused_step.cuh's CcLane, CbLane and
-# AreaCbLane, and of their adjoints in fused_step_bwd.cu
-LANE_OPS = {1: 45, 2: 60, 3: 35}
-LANE_BWD_OPS = {1: 45, 2: 50, 3: 20}
+# float32 operations of one circle-circle, circle-box, circle-in-area and
+# box-box lane (pair kinds 1, 2, 3, 4), counted from fused_step.cuh's CcLane,
+# CbLane, AreaCbLane and BbLane, and of their adjoints in fused_step_bwd.cu
+LANE_OPS = {1: 45, 2: 60, 3: 35, 4: 30}
+LANE_BWD_OPS = {1: 45, 2: 50, 3: 20, 4: 50}
 
 
 def pair_ops(va, vb, kind=0):
     """float32 operations of one pair's lanes (see fused_bound_ms): a
-    polygon pair's SAT and clip (kind 0), or a circle pair's analytic lane
-    (kind 1: cc, 2: cb, 3: area_cb)."""
+    polygon pair's SAT and clip (kind 0), or a circle or box pair's
+    analytic lane (kind 1: cc, 2: cb, 3: area_cb, 4: bb)."""
     if kind:
         return LANE_OPS[kind]
     A = va + vb
@@ -436,12 +442,7 @@ def circle_solves(gpu):
         got = contact_solver.solve_contacts(w, s, con, *args)
         want = contact_solver.solve_contacts_plain(w, s, con, *args)
         torch.cuda.synchronize()
-        err = 0.0
-        for f, a, b in zip(got._fields, got, want):
-            d = (a - b).abs().max().item()
-            check(np.isfinite(d) and d <= ATOL, f"solve kernel vs plain on {label}: {f} "
-                  f"differs by {d}")
-            err = max(err, d)
+        err = planes_err(f"solve kernel vs plain on {label}", got, want)
         ms, plain_ms, t = turns(lambda: contact_solver.solve_contacts(w, s, con, *args),
                                 lambda: contact_solver.solve_contacts_plain(w, s, con, *args),
                                 3 if label == "billiards48" else 10)
@@ -458,6 +459,17 @@ def circle_solves(gpu):
                       "bound_by": by, "active_cc": cc, "active_cb": cb}
         del s, con, got, want
     return out
+
+
+def planes_err(label, got, want, bar=ATOL):
+    """The largest difference over the planes of two ``_SoA``s; fail on a
+    non-finite value or beyond ``bar``."""
+    err = 0.0
+    for f, a, b in zip(got._fields, got, want):
+        d = (a - b).abs().max().item()
+        check(np.isfinite(d) and d <= bar, f"{label}: {f} differs by {d}")
+        err = max(err, d)
+    return err
 
 
 def hold_vjp(label, got, want, bar=True, ulps=0):
@@ -560,11 +572,7 @@ def robocup_kernels(env_b, gpu):
           f"RoboCup scenario: active lanes {kinds}")
     check(torch.equal(got_c.active, want_c.active),
           f"fused lanes vs plain on RoboCup: {int((got_c.active != want_c.active).sum())} flags differ")
-    err = 0.0
-    for f, a, b in zip(got_s._fields, got_s, want_s):
-        d = (a - b).abs().max().item()
-        check(np.isfinite(d) and d <= ATOL, f"fused kernel vs plain on RoboCup: {f} differs by {d}")
-        err = max(err, d)
+    err = planes_err("fused kernel vs plain on RoboCup", got_s, want_s)
     ms, plain_ms, t = turns(lambda: fused_step.physics_core_fused(w, s),
                             lambda: fused_step.fused_step_plain(w, s), 20)
     n_act = sum(kinds.values())
@@ -655,11 +663,7 @@ def robocup_kernels(env_b, gpu):
     got = contact_solver.solve_contacts(ws, si, con, *args)
     want = contact_solver.solve_contacts_plain(ws, si, con, *args)
     torch.cuda.synchronize()
-    err = 0.0
-    for f, a, b in zip(got._fields, got, want):
-        d = (a - b).abs().max().item()
-        check(np.isfinite(d) and d <= ATOL, f"solve kernel vs plain on RoboCup: {f} differs by {d}")
-        err = max(err, d)
+    err = planes_err("solve kernel vs plain on RoboCup", got, want)
     got = contact_solver.solve_contacts_bwd(ws, si, con, cot, *args)
     want = contact_solver.solve_contacts_bwd_plain(ws, si, con, cot, *args)
     torch.cuda.synchronize()
@@ -958,6 +962,310 @@ def profile_train(label, loss_fn, params, states, gpu):
         print(f"[profile]   {t / 1e3:9.3f} ms in {n:6d} launches: {name[:90]}")
 
 
+def crate_kernels(gpu):
+    """Phase 3 on the crate pile (14 bodies, C=88 one-lane pairs: 3 cc, 33
+    cb, 52 bb) at B: the fused kernel (its bb lanes with cc and cb) and its
+    reverse pass against their plain versions on ``crate_overlap_state``
+    and at ``bb_tie_case`` (B=1); the solve kernel and its reverse pass at
+    the pile's split shapes and at the mixed world's (2-lane pp and bp
+    manifolds with partners, one-lane cp, cc and cb).  Returns ``{entry:
+    results}``."""
+    from parallax_tpu_torch.engine.batched import collide_batched, integrate_bm
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from torch_scenarios import (active_kinds, bb_tie_case, cotangents, crate_overlap_state,
+                                 crate_world, kinds_state, kinds_world)
+
+    dev = torch.device("cuda")
+    out = {}
+    w, _ = crate_world("cuda", fused=True)
+    s = crate_overlap_state(w, B)
+    got_s, got_c = fused_step.physics_core_fused(w, s)
+    want_s, want_c = fused_step.fused_step_plain(w, s)
+    torch.cuda.synchronize()
+    kinds = active_kinds(w, want_c.active)
+    check(set(kinds) == {"cc", "cb", "bb"} and min(kinds.values()) > 0,
+          f"crate scenario: active lanes {kinds}")
+    check(torch.equal(got_c.active, want_c.active),
+          f"fused bb lanes vs plain on the crate pile: "
+          f"{int((got_c.active != want_c.active).sum())} flags differ")
+    err = planes_err("fused kernel vs plain on the crate pile", got_s, want_s)
+    ms, plain_ms, t = turns(lambda: fused_step.physics_core_fused(w, s),
+                            lambda: fused_step.fused_step_plain(w, s), 20)
+    n_act = sum(kinds.values())
+    bound, by, nbytes, ops = fused_bound_ms(w, [], n_act, B)
+    print(f"[kernel] fused_step_fwd (bb, cb, cc lanes) vs plain on the crate pile at B={B}: active "
+          f"lanes {kinds}, flags identical, max |diff| {err:.3e} <= {ATOL}")
+    print(f"[time] fused step per call on the crate pile at B={B}: kernel {ms:.4f} ms, plain torch "
+          f"{plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+    print(f"[bound] fused step on the crate pile at B={B}, {n_act} active lanes: {bound:.5f} ms "
+          f"({by}; {nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M float32 operations)")
+    out["fwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                  "bound_by": by}
+
+    cot = cotangents(w.n_bodies, B, 5, dev)
+    got = fused_step.fused_step_bwd(w, s, None, cot)[0]
+    want = fused_step.fused_step_bwd_plain(w, s, None, cot)[0]
+    torch.cuda.synchronize()
+    err, share = hold_vjp("fused_step_bwd on the crate pile", got, want)
+    off = float64_reading(got, want, fused_vjp64(w, s, cot))
+    check(all(x.abs().max().item() > 0 for x in got[:4]), "fused reverse pass on the crate "
+          "pile: a dead plane")
+    print(f"[kernel] fused_step_bwd (bb, cb, cc lanes) vs plain VJP on the crate pile at B={B}: max "
+          f"|diff| {err:.3e}, {share:.3f} of the bar (rtol {RTOL}, atol {ATOL}); worlds off the "
+          f"float64 VJP by more than 1e-3: kernel {off[0]}, plain float32 {off[1]}")
+    ms, plain_ms, t = turns(lambda: fused_step.fused_step_bwd(w, s, None, cot),
+                            lambda: fused_step.fused_step_bwd_plain(w, s, None, cot), 5)
+    touched = touched_pairs(w, want_c.active)
+    bound, by, nbytes, ops = fused_bwd_bound_ms(w, [], n_act, touched, B)
+    print(f"[time] fused reverse pass per call on the crate pile at B={B}: kernel {ms:.4f} ms, plain "
+          f"autograd {plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+    print(f"[bound] fused reverse pass on the crate pile at B={B}, {sum(touched)} pairs touching: "
+          f"{bound:.5f} ms ({by}; {nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M float32 operations)")
+    out["bwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                  "bound_by": by}
+
+    # the bb lane's exact ties (B=1): the aligned stack's contact point and
+    # the corner overlap's nested minimum
+    ts, tcot = bb_tie_case(w, dev)
+    got_s, got_c = fused_step.physics_core_fused(w, ts)
+    want_s, want_c = fused_step.fused_step_plain(w, ts)
+    got = fused_step.fused_step_bwd(w, ts, None, tcot)[0]
+    want = fused_step.fused_step_bwd_plain(w, ts, None, tcot)[0]
+    torch.cuda.synchronize()
+    check(active_kinds(w, want_c.active) == {"cc": 0, "cb": 0, "bb": 2}, "bb_tie_case's lanes")
+    check(torch.equal(got_c.active, want_c.active), "bb_tie_case: flags differ")
+    tie_f = planes_err("fused kernel vs plain at bb_tie_case", got_s, want_s)
+    tie_b, tie_share = hold_vjp("fused_step_bwd at bb_tie_case", got, want)
+    check(got.py.abs().max().item() > 0.01, "bb_tie_case: a dead plane")
+    print(f"[kernel] bb_tie_case (B=1: two crates stacked and aligned, two squares overlapping a "
+          f"corner equally in x and y): fused_step_fwd max |diff| {tie_f:.3e}, fused_step_bwd max "
+          f"|diff| {tie_b:.3e} ({tie_share:.3f} of the bar) vs the plain versions")
+    out["fwd"]["max_abs_err"] = max(out["fwd"]["max_abs_err"], tie_f)
+    out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], tie_b)
+
+    # rows 1 and 2 at the pile's split shapes and at the mixed world's
+    ws, _ = crate_world("cuda")
+    wm, st0 = kinds_world("mixed", "cuda", use_cuda_solver=True)
+    for label, world, sw, barred in (
+            ("crates", ws, s, True),
+            # the JAX test's perturbations of the mixed world, no pile: the
+            # reverse pass there is a reading (random drops and tumbles put
+            # lanes at kinks, where two float32 VJPs differ by O(1))
+            ("mixed", wm, kinds_state("mixed", wm, st0, B, pile=False), False)):
+        c = world.config
+        si, _ = integrate_bm(world, sw)
+        con = collide_batched(world, si)
+        args = (c.solver_iterations, c.position_iterations, c.dt, c.contact)
+        got = contact_solver.solve_contacts(world, si, con, *args)
+        want = contact_solver.solve_contacts_plain(world, si, con, *args)
+        torch.cuda.synchronize()
+        err = planes_err(f"solve kernel vs plain on the {label} world", got, want)
+        cot = cotangents(world.n_bodies, B, 5, dev)
+        got = contact_solver.solve_contacts_bwd(world, si, con, cot, *args)
+        want = contact_solver.solve_contacts_bwd_plain(world, si, con, cot, *args)
+        torch.cuda.synchronize()
+        berr, bshare = hold_vjp(f"contact_solve_bwd on the {label} world", (*got[0], *got[1:]),
+                                (*want[0], *want[1:]), barred)
+
+        def d64(x):
+            return x.double() if x.is_floating_point() else x
+
+        want64 = contact_solver.solve_contacts_bwd_plain(
+            world, type(si)(*map(d64, si)), type(con)(*map(d64, con)),
+            type(cot)(*map(d64, cot)), *args)
+        off = float64_reading((*got[0], *got[1:]), (*want[0], *want[1:]),
+                              (*want64[0], *want64[1:]))
+        n_act = int(con.active.sum())
+        C, n = world.table.n_contacts, world.n_bodies
+        kinds = active_kinds(world, con.active)
+        print(f"[kernel] contact_solve_fwd vs plain on the {label} world at B={B} ({n} bodies, "
+              f"C={C}, active {kinds}): max |diff| {err:.3e} <= {ATOL}; contact_solve_bwd vs plain "
+              f"VJP: max |diff| {berr:.3e}, {bshare:.3f} of the bar"
+              f"{'' if barred else ' (a reading, no bar)'}; worlds off the float64 VJP by more "
+              f"than 1e-3: kernel {off[0]}, plain float32 {off[1]}")
+        entry = {}
+        for key, e_, fn, plain, reps in (
+                ("solve", err, lambda: contact_solver.solve_contacts(world, si, con, *args),
+                 lambda: contact_solver.solve_contacts_plain(world, si, con, *args), 10),
+                ("solve_bwd", berr,
+                 lambda: contact_solver.solve_contacts_bwd(world, si, con, cot, *args),
+                 lambda: contact_solver.solve_contacts_bwd_plain(world, si, con, cot, *args), 5)):
+            ms, plain_ms, t = turns(fn, plain, reps)
+            bound, by = solver_bound_ms(n_act, B, C, n, 0, c.solver_iterations,
+                                        c.position_iterations, bwd=key == "solve_bwd")
+            print(f"[time] contact_{key} per call on the {label} world at B={B}: kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}); bound "
+                  f"{bound:.5f} ms ({by}) on {gpu}")
+            entry[key] = {"max_abs_err": e_, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": by}
+        out[label] = entry
+    return out
+
+
+def crate_card_vs_cpu():
+    """Phases 4 and 6 on the user-built worlds, B=SMALL_B: ``step_batched``
+    on the crate pile from ``crate_overlap_state``, split and fused on the
+    card against the split step on the CPU, positions after SMALL_STEPS
+    steps within CPU_ATOL, and the gradient of ``crate_kick_loss`` through
+    them (4 checkpointed segments) within GRAD_RTOL in norm; the mixed and
+    area worlds on the split step, from ``kinds_state``.  Those worlds'
+    drops and bounces are chaotic (a one-ulp change of the start moves some
+    worlds' positions by 1e-2 to 0.3 within 60 steps on the CPU alone), so
+    there each step of the card starts from the CPU's state and its
+    positions are held within CPU_ATOL, and the free rollouts' distance is
+    read with no bar."""
+    from parallax_tpu_torch.engine.batched import _from_soa, step_batched
+    from torch_scenarios import (KIND_WORLDS, crate_kick_loss, crate_overlap_state, crate_world,
+                                 kinds_state, kinds_world)
+
+    res = {}
+    for label, dev, fused in (("cpu", "cpu", False), ("split", "cuda", False),
+                              ("fused", "cuda", True)):
+        w, _ = crate_world(dev, fused=fused)
+        s = crate_overlap_state(w, SMALL_B)
+        st = _from_soa(s)
+        with torch.no_grad():
+            for _ in range(SMALL_STEPS):
+                st, _ = step_batched(w, st)
+        u = torch.zeros(2, device=dev, requires_grad=True)
+        loss, _ = crate_kick_loss(w, s, u, SMALL_STEPS, 4)
+        (g,) = torch.autograd.grad(loss, u)
+        res[label] = (st.pos.cpu(), loss.item(), g.cpu())
+    pos_c, loss_c, g_c = res["cpu"]
+    for label in ("split", "fused"):
+        pos, loss, g = res[label]
+        perr = (pos - pos_c).abs().max().item()
+        grel = ((g - g_c).norm() / g_c.norm()).item()
+        print(f"[check] crate pile step_batched {label} B={SMALL_B} x {SMALL_STEPS} steps, card vs "
+              f"CPU: max |pos diff| {perr:.3e}; crate_kick_loss {loss:.9f} vs {loss_c:.9f}, its "
+              f"gradient rel diff in norm {grel:.2e}")
+        check(torch.isfinite(pos).all().item() and perr <= CPU_ATOL,
+              f"crate pile {label}: card vs CPU positions differ by {perr}")
+        check(grel <= GRAD_RTOL and g_c.norm() > 0,
+              f"crate pile {label}: card vs CPU gradient rel diff {grel}")
+    for name in KIND_WORLDS:
+        wc, st0c = kinds_world(name, "cpu", use_cuda_solver=True)
+        wg, _ = kinds_world(name, "cuda", use_cuda_solver=True)
+        sc = kinds_state(name, wc, st0c, SMALL_B)
+        st_c, free_g = _from_soa(sc), _from_soa(type(sc)(*(x.cuda() for x in sc)))
+        step_err = 0.0
+        with torch.no_grad():
+            for _ in range(SMALL_STEPS):
+                nxt, _ = step_batched(wc, st_c)
+                one, _ = step_batched(wg, type(st_c)(*(x.cuda() for x in st_c)))
+                step_err = max(step_err, (one.pos.cpu() - nxt.pos).abs().max().item())
+                free_g, _ = step_batched(wg, free_g)
+                st_c = nxt
+        d = (free_g.pos.cpu() - st_c.pos).abs().amax((1, 2))
+        print(f"[check] {name} world step_batched split B={SMALL_B} x {SMALL_STEPS} steps, card vs "
+              f"CPU: each step from the CPU's state, max |pos diff| {step_err:.3e}; free "
+              f"rollouts (a reading): max |pos diff| {d.max().item():.3e}, worlds beyond "
+              f"{CPU_ATOL}: {int((d > CPU_ATOL).sum())}")
+        check(np.isfinite(step_err) and step_err <= CPU_ATOL,
+              f"{name} world: card vs CPU step differs by {step_err}")
+
+
+def crate_paths(gpu):
+    """Phase 5b on the crate pile at B: ``step_batched`` over STEPS steps
+    from ``crate_overlap_state``, split, fused, fused, split, each with its
+    launches and peak memory; world-steps/s, best of two per path; the
+    layers of a step (CUDA events).  Returns ``{path: (world-steps/s,
+    (solver, fused launches), peak GiB)}``."""
+    from parallax_tpu_torch.engine.batched import (_from_soa, collide_batched, integrate_bm,
+                                                   step_batched)
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from torch_scenarios import crate_overlap_state, crate_world
+
+    worlds = {"split": crate_world("cuda")[0], "fused": crate_world("cuda", fused=True)[0]}
+    s = crate_overlap_state(worlds["split"], B)
+    res = {}
+    with torch.no_grad():
+        for label in ("split", "fused", "fused", "split"):
+            w = worlds[label]
+            st = _from_soa(s)
+            step_batched(w, st)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            contact_solver.launches = fused_step.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(STEPS):
+                st, con = step_batched(w, st)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = (contact_solver.launches, fused_step.launches)
+            want = (STEPS, 0) if label == "split" else (0, STEPS)
+            check(counts == want, f"crate pile {label}: launches (solver, fused) {counts}, "
+                  f"want {want}")
+            check(torch.isfinite(st.pos).all().item() and tuple(con.active.shape) == (88, B),
+                  f"crate pile {label}: non-finite state or lanes {tuple(con.active.shape)}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rate = B * STEPS / sec
+            print(f"[main] crate pile step_batched {label} B={B} x {STEPS} steps (14 bodies, "
+                  f"C=88): launches solver {counts[0]}, fused {counts[1]}, {rate:.1f} world-steps/s, "
+                  f"peak memory {peak:.2f} GiB, on {gpu}")
+            if label not in res or rate > res[label][0]:
+                res[label] = (rate, counts, peak)
+        si, _ = integrate_bm(worlds["split"], s)
+        con = collide_batched(worlds["split"], si)
+        c = worlds["split"].config
+        st = _from_soa(s)
+        layers = {
+            "split step (step_batched)": lambda: step_batched(worlds["split"], st),
+            "fused step (step_batched)": lambda: step_batched(worlds["fused"], st),
+            "collide_batched": lambda: collide_batched(worlds["split"], si),
+            "solve kernel": lambda: contact_solver.solve_contacts(
+                worlds["split"], si, con, c.solver_iterations, c.position_iterations, c.dt,
+                c.contact),
+            "fused step kernel": lambda: fused_step.physics_core_fused(worlds["fused"], s),
+        }
+        for name_, fn in layers.items():
+            cuda_ms(fn, 2)
+            print(f"[time] crate pile: {name_} {cuda_ms(fn, 10):.4f} ms per call at B={B} on {gpu}")
+    print(f"[time] crate pile step_batched B={B}: split {res['split'][0]:.1f}, fused "
+          f"{res['fused'][0]:.1f} world-steps/s (best of 2 turns each of {STEPS} steps) on {gpu}")
+    return res
+
+
+def crate_train(gpu):
+    """Phase 7 on the crate pile: the gradient of ``crate_kick_loss``
+    through HORIZON steps of ``step_batched`` at B, SEGMENTS checkpointed
+    segments as the train path runs them, split and fused, one timed run
+    each after a warm-up.  Returns ``{path: (s, launches, peak)}`` with the
+    launches as (solver fwd, bwd, fused fwd, bwd)."""
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from torch_scenarios import crate_kick_loss, crate_overlap_state, crate_world
+
+    res = {}
+    for label, fused in (("split", False), ("fused", True)):
+        w, _ = crate_world("cuda", fused=fused)
+        s = crate_overlap_state(w, B)
+        for timed in (False, True):
+            u = torch.zeros(2, device="cuda", requires_grad=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            contact_solver.launches = contact_solver.bwd_launches = 0
+            fused_step.launches = fused_step.bwd_launches = 0
+            t0 = time.perf_counter()
+            loss, _ = crate_kick_loss(w, s, u, HORIZON, SEGMENTS)
+            (g,) = torch.autograd.grad(loss, u)
+            g = g.cpu()  # synchronizes
+            sec = time.perf_counter() - t0
+        counts = (contact_solver.launches, contact_solver.bwd_launches,
+                  fused_step.launches, fused_step.bwd_launches)
+        want = (2 * HORIZON, HORIZON, 0, 0) if not fused else (0, 0, 2 * HORIZON, HORIZON)
+        check(counts == want, f"crate pile {label} gradient: launches {counts}, want {want}")
+        check(bool(torch.isfinite(g).all()) and g.norm() > 0,
+              f"crate pile {label} gradient: {g.tolist()}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res[label] = (sec, counts, peak)
+        print(f"[train] crate pile {label} gradient of crate_kick_loss B={B} h={HORIZON} "
+              f"segments={SEGMENTS}: loss {loss.item():.6f}, grad {[round(x, 9) for x in g.tolist()]}, "
+              f"{sec:.3f} s, {B * HORIZON / sec:.1f} world-steps/s, launches solver fwd {counts[0]} "
+              f"bwd {counts[1]}, fused fwd {counts[2]} bwd {counts[3]}, peak memory {peak:.2f} GiB, "
+              f"on {gpu}")
+    return res
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -1025,11 +1333,8 @@ def main():
         want = contact_solver.solve_contacts_plain(env.world, s, con, cfg.solver_iterations,
                                                    pi, cfg.dt, cfg.contact)
         torch.cuda.synchronize()
-        for f, a, b in zip(got._fields, got, want):
-            err = (a - b).abs().max().item()
-            check(np.isfinite(err) and err <= ATOL,
-                  f"kernel vs plain: {f} differs by {err} (position_iterations={pi})")
-            max_err = max(max_err, err)
+        max_err = max(max_err, planes_err(
+            f"kernel vs plain (position_iterations={pi})", got, want))
     print(f"[kernel] contact_solve_fwd vs plain at B={B}: {n_active} active lanes, "
           f"max |diff| {max_err:.3e} <= {ATOL}")
 
@@ -1077,11 +1382,7 @@ def main():
     check(f_active > 100, f"fused scenario has {f_active} active lanes, need > 100")
     check(torch.equal(got_c.active, want_c.active),
           f"fused kernel vs plain: {int((got_c.active != want_c.active).sum())} active flags differ")
-    fused_err = 0.0
-    for f, a, b in zip(got_s._fields, got_s, want_s):
-        err = (a - b).abs().max().item()
-        check(np.isfinite(err) and err <= ATOL, f"fused kernel vs plain: {f} differs by {err}")
-        fused_err = max(fused_err, err)
+    fused_err = planes_err("fused kernel vs plain", got_s, want_s)
     print(f"[kernel] fused_step_fwd vs plain at B={B}: {f_active} active lanes, flags "
           f"identical, max |diff| {fused_err:.3e} <= {ATOL}")
 
@@ -1156,11 +1457,7 @@ def main():
           f"{cb_active} cb lanes active, need both > 0")
     check(torch.equal(got_c.active, want_c.active),
           f"fused cc/cb lanes vs plain: {int((got_c.active != want_c.active).sum())} flags differ")
-    b_err = 0.0
-    for f, a, b in zip(got_s._fields, got_s, want_s):
-        err = (a - b).abs().max().item()
-        check(np.isfinite(err) and err <= ATOL, f"fused cc/cb lanes vs plain: {f} differs by {err}")
-        b_err = max(b_err, err)
+    b_err = planes_err("fused cc/cb lanes vs plain", got_s, want_s)
     print(f"[kernel] fused_step_fwd (cc, cb lanes) vs plain on billiards8 at B={B}: {cc_active} cc "
           f"and {cb_active} cb lanes active, flags identical, max |diff| {b_err:.3e} <= {ATOL}")
     fused_err = max(fused_err, b_err)
@@ -1183,6 +1480,8 @@ def main():
     max_err = max([max_err] + [v["max_abs_err"] for v in solves.values()])
     lap("phase 3 on RoboCup starts")
     rc = robocup_kernels(env_b, gpu)
+    lap("phase 3 on the crate pile starts")
+    crates = crate_kernels(gpu)
 
     lap("phase 4 starts")
     # -- phase 4: the rollout path ---------------------------------------------------
@@ -1307,6 +1606,8 @@ def main():
 
     lap("phase 5b on RoboCup starts")
     rc_paths = robocup_paths(gpu)
+    lap("phase 5b on the crate pile starts")
+    crate_rates = crate_paths(gpu)
 
     lap("phase 6 starts")
     # -- phase 6: the train path, card against CPU ----------------------------------
@@ -1347,6 +1648,8 @@ def main():
     check(all(g.norm().item() > 0 for g in grads_f), "a fused policy gradient is zero")
     lap("phases 4 and 6 on RoboCup and billiards8 start")
     robocup_card_vs_cpu(env_b)
+    lap("phases 4 and 6 on the user-built worlds start")
+    crate_card_vs_cpu()
 
     lap("phase 7 starts")
     # -- phase 7: the train path at full width, split and fused -------------------------
@@ -1399,6 +1702,8 @@ def main():
     del runs
     lap("phase 7 on RoboCup and billiards8 starts")
     rc_train = robocup_train(env_b, gpu)
+    lap("phase 7 on the crate pile starts")
+    crate_grad = crate_train(gpu)
     lap("done")
     print(json.dumps({"kernels": [
         {
@@ -1406,9 +1711,10 @@ def main():
             "route": "cuda",
             "source": "parallax_tpu_torch/csrc/contact_solver.cu",
             "replaces": "parallax_tpu/ops/pallas_solver.py:581",
-            # the lander's rollout and the circle worlds' split rollouts
+            # the lander's rollout, the circle worlds' split rollouts and
+            # the crate pile's split step_batched
             "launches": launches + sum(circle[f"{k} split"][1][0] for k in solves)
-            + rc_paths["robocup split"][1][0],
+            + rc_paths["robocup split"][1][0] + crate_rates["split"][1][0],
             "max_abs_err": max_err,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -1417,33 +1723,42 @@ def main():
             "library_ms": None,
             **{k: {"launches": circle[f"{k} split"][1][0], **v} for k, v in solves.items()},
             "robocup": {"launches": rc_paths["robocup split"][1][0], **rc["solve"]},
+            "crates": {"launches": crate_rates["split"][1][0], **crates["crates"]["solve"]},
+            "mixed": crates["mixed"]["solve"],
         },
         {
             "name": "contact_solve_bwd",
             "route": "cuda",
             "source": "parallax_tpu_torch/csrc/contact_solver_bwd.cu",
             "replaces": "parallax_tpu/ops/pallas_solver.py:534",
-            # the lander's and RoboCup's split train steps
-            "launches": train["split"][1][1] + rc_train["robocup split"][1][1],
-            "max_abs_err": max(bwd_err, rc["solve_bwd"]["max_abs_err"]),
+            # the lander's and RoboCup's split train steps and the crate
+            # pile's split gradient
+            "launches": train["split"][1][1] + rc_train["robocup split"][1][1]
+            + crate_grad["split"][1][1],
+            "max_abs_err": max(bwd_err, rc["solve_bwd"]["max_abs_err"],
+                               crates["crates"]["solve_bwd"]["max_abs_err"]),
             "ms": bwd_ms,
             "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_bound,
             "bound_by": bwd_by,
             "library_ms": None,
             "robocup": {"launches": rc_train["robocup split"][1][1], **rc["solve_bwd"]},
+            "crates": {"launches": crate_grad["split"][1][1], **crates["crates"]["solve_bwd"]},
+            # a reading on random drops: no bar (see crate_kernels)
+            "mixed": crates["mixed"]["solve_bwd"],
         },
         {
             "name": "fused_step_fwd",
             "route": "cuda",
             "source": "parallax_tpu_torch/csrc/fused_step.cu",
             "replaces": "parallax_tpu/ops/pallas_step.py:473",
-            "lanes": ["pp", "cc", "cb", "area_cb"],
-            # the lander's fused rollout (pp), billiards8's (cc, cb) and
-            # RoboCup's (cc, cb, area_cb)
+            "lanes": ["pp", "cc", "cb", "bb", "area_cb"],
+            # the lander's fused rollout (pp), billiards8's (cc, cb),
+            # RoboCup's (cc, cb, area_cb) and the crate pile's (bb, cb, cc)
             "launches": fused_launches + circle["billiards8 fused"][1][1]
-            + rc_paths["robocup fused"][1][1],
-            "max_abs_err": max(fused_err, rc["fwd"]["max_abs_err"]),
+            + rc_paths["robocup fused"][1][1] + crate_rates["fused"][1][1],
+            "max_abs_err": max(fused_err, rc["fwd"]["max_abs_err"],
+                               crates["fwd"]["max_abs_err"]),
             "ms": fused_ms,
             "plain_ms": fused_plain_ms,
             "bound_ms": f_bound,
@@ -1459,18 +1774,20 @@ def main():
             },
             "robocup": {"launches": rc_paths["robocup fused"][1][1],
                         **{k: v for k, v in rc["fwd"].items() if k != "active"}},
+            "crates": {"launches": crate_rates["fused"][1][1], **crates["fwd"]},
         },
         {
             "name": "fused_step_bwd",
             "route": "cuda",
             "source": "parallax_tpu_torch/csrc/fused_step_bwd.cu",
             "replaces": "parallax_tpu/ops/pallas_step.py:495",
-            "lanes": ["pp", "cc", "cb", "area_cb"],
-            # the fused train steps of the lander and RoboCup, and billiards8's cue objective
+            "lanes": ["pp", "cc", "cb", "bb", "area_cb"],
+            # the fused train steps of the lander and RoboCup, billiards8's
+            # cue objective and the crate pile's fused gradient
             "launches": train["fused"][1][3] + rc_train["robocup fused"][1][3]
-            + rc_train["billiards8 fused cue objective"][1][3],
+            + rc_train["billiards8 fused cue objective"][1][3] + crate_grad["fused"][1][3],
             "max_abs_err": max(fbwd_err, rc["bwd"]["max_abs_err"],
-                               rc["bwd_billiards8"]["max_abs_err"]),
+                               rc["bwd_billiards8"]["max_abs_err"], crates["bwd"]["max_abs_err"]),
             "ms": fbwd_ms,
             "plain_ms": fbwd_plain_ms,
             "bound_ms": fb_bound,
@@ -1478,6 +1795,7 @@ def main():
             "library_ms": None,
             "robocup": {"launches": rc_train["robocup fused"][1][3], **rc["bwd"]},
             "billiards8": {"launches": rc_train["billiards8 fused cue objective"][1][3], **rc["bwd_billiards8"]},
+            "crates": {"launches": crate_grad["fused"][1][3], **crates["bwd"]},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

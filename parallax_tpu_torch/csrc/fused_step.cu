@@ -3,9 +3,9 @@
 // Replaces parallax_tpu/ops/pallas_step.py:_step_kernel (l.473: the math
 // of step_arrays, the SAT of _pp_manifold_arrays, the circle and box lanes
 // of l.415-440 and the vertices of _world_verts_rows) on NVIDIA Hopper
-// (sm_90a), for worlds whose pair groups are polygon-polygon ("pp"),
-// circle-circle ("cc"), circle-box ("cb") and circle-in-area-box
-// ("area_cb"); the JAX kernel's box-box ("bb") lanes are not ported yet.
+// (sm_90a), for worlds whose pair groups are the JAX kernel's five kinds:
+// polygon-polygon ("pp"), circle-circle ("cc"), circle-box ("cb"),
+// box-box ("bb") and circle-in-area-box ("area_cb").
 // Per world it computes what ops/fused_step.py:fused_step_plain computes,
 // lane for lane:
 //
@@ -19,9 +19,10 @@
 //     contact lanes per pair, point-minor; a pair with no valid axis (a
 //     world with NaN vertices) is inactive, as in the TPU kernel
 //     (pallas_step.py:251);
-//   * per circle pair one lane with no partner: _cc_bm's, _cb_bm's or
-//     _area_cb_bm's arithmetic (CcLane, CbLane, AreaCbLane), with the
-//     pair's radii, dispatched on the pair's kind;
+//   * per circle or box pair one lane with no partner: _cc_bm's,
+//     _cb_bm's, _bb_bm's or _area_cb_bm's arithmetic (CcLane, CbLane,
+//     BbLane, AreaCbLane), with the pair's radii, dispatched on the pair's
+//     kind;
 //   * every pair writes from its first lane on, which the host takes from
 //     the pair table (groups concatenate in table order), so the solver's
 //     partner table lines up;
@@ -45,10 +46,11 @@
 // thread per world (64 blocks of 128 threads at B=8192, half the SMs), the
 // world's vertices in per-thread arrays, each pair's axes in per-thread
 // arrays, body planes and lanes addressed [row * B + b] so that
-// neighbouring threads touch neighbouring addresses.  A circle lane costs
-// about 45 (cc), 60 (cb) or 35 (area_cb) float32 operations; billiards (28
-// cc and 32 cb pairs, C=60) and RoboCup (21 cc, 42 cb and 7 area_cb pairs,
-// C=70) spend most of their time in the solve.  Spreading a world's pairs
+// neighbouring threads touch neighbouring addresses.  An analytic lane
+// costs about 45 (cc), 60 (cb), 35 (area_cb) or 30 (bb) float32
+// operations; billiards (28 cc and 32 cb pairs, C=60), RoboCup (21 cc, 42
+// cb and 7 area_cb pairs, C=70) and the crate pile (3 cc, 33 cb and 52 bb
+// pairs, C=88) spend most of their time in the solve.  Spreading a world's pairs
 // over a warp is later work.
 //
 // Build without --use_fast_math and with --fmad=false, and keep the plain
@@ -56,10 +58,10 @@
 // and sum on their own, and call cosf, sinf and rsqrtf as this code does.
 // Selections follow the plain version: the first minimum axis wins (o <
 // best), a reference edge needs al > best, A is the reference when its
-// score is >=, a circle-box or area face tie goes to the earliest side;
-// min and max propagate NaN (maxp, minp).
+// score is >=, a circle-box, box-box or area face tie goes to the
+// earliest side; min and max propagate NaN (maxp, minp).
 //
-// The integration, the vertices, the SAT and the circle lanes live in
+// The integration, the vertices, the SAT and the analytic lanes live in
 // fused_step.cuh, which the reverse pass (fused_step_bwd.cu) shares.
 
 #include "fused_step.cuh"

@@ -1,10 +1,11 @@
 // Device code shared by the fused step (fused_step.cu) and its reverse pass
 // (fused_step_bwd.cu), one CUDA thread per world: integration and gravity,
 // the world-frame vertices, each polygon pair's SAT and reference-face clip,
-// and each circle-circle, circle-box and circle-in-area-box pair's analytic
-// lane.  The reverse pass recomputes the step with exactly this code, so its
-// decisions (the SAT's best axis, sign, reference edge, clip cuts and kept
-// points; a circle lane's branches) are the forward kernel's to the bit.
+// and each circle-circle, circle-box, box-box and circle-in-area-box pair's
+// analytic lane.  The reverse pass recomputes the step with exactly this
+// code, so its decisions (the SAT's best axis, sign, reference edge, clip
+// cuts and kept points; an analytic lane's branches) are the forward
+// kernel's to the bit.
 // See fused_step.cu for what it computes and the rules it follows.
 
 #pragma once
@@ -24,7 +25,7 @@ enum PartCol { P_BODY, P_ROTATE, P_NV, PART_COLS };
 enum PairCol { Q_A, Q_B, Q_VA, Q_VB, Q_MASK_A, Q_MASK_B, Q_LANE, Q_KIND, PAIR_COLS };
 // pair kinds (pair_i's Q_KIND), in the order of ops/fused_step.py's _KINDS:
 // two SAT lanes, or one analytic lane
-enum PairKind { K_PP, K_CC, K_CB, K_AREA_CB };
+enum PairKind { K_PP, K_CC, K_CB, K_AREA_CB, K_BB };
 
 struct StepArgs {
   const float *px, *py, *vx, *vy, *ang, *om;  // [n, B] before the step
@@ -341,6 +342,43 @@ struct AreaCbLane {
   }
 };
 
+// box A [la, ua] against box B [lb, ub] (engine/batched.py:_bb_bm): the
+// four overlaps, A's top into B's bottom (d0), B's top into A's bottom
+// (d1), A's right into B's left (d2), B's right into A's left (d3), each
+// floored at -eps; the least of them pushes A (the earliest winning a
+// tie), by max(best, 0), and the contact point is the middle of the
+// overlap.  Touching boxes are separated: the comparisons are <= and >=,
+// so a NaN leaves the lane active.  Keeps what its adjoint needs.
+struct BbLane {
+  float e[4], d[4];  // the four overlaps, before and after their floors
+  float best;
+  bool is0, is1, is2, is3;
+  Lane out;
+
+  __device__ void run(float lax, float lay, float uax, float uay, float lbx,
+                      float lby, float ubx, float uby) {
+    const float eps = 1e-8f;
+    const bool separated = uay <= lby || lay >= uby || uax <= lbx || lax >= ubx;
+    e[0] = uay - lby;
+    e[1] = uby - lay;
+    e[2] = uax - lbx;
+    e[3] = ubx - lax;
+    for (int k = 0; k < 4; ++k) d[k] = maxp(e[k], -eps);
+    best = minp(minp(d[0], d[1]), minp(d[2], d[3]));
+    is0 = best == d[0];
+    is1 = !is0 && best == d[1];
+    is2 = !is0 && !is1 && best == d[2];
+    is3 = !is0 && !is1 && !is2;
+    const float m = maxp(best, 0.0f);
+    const float pen_x = is2 ? -m : (is3 ? m : 0.0f);
+    const float pen_y = is0 ? -m : (is1 ? m : 0.0f);
+    const float ptx = (minp(uax, ubx) + maxp(lax, lbx)) / 2.0f;
+    const float pty = (minp(uay, uby) + maxp(lay, lby)) / 2.0f;
+    const float a = separated ? 0.0f : 1.0f;
+    out = {pen_x * a, pen_y * a, ptx, pty, !separated};
+  }
+};
+
 // integration and gravity of world b's bodies, written to the planes
 // args.o*; the poses stay in qx, qy and the cosine and sine of the angle,
 // for the vertices
@@ -468,6 +506,13 @@ __device__ void pair_geometry(const StepArgs& st, int C, size_t B, int b,
       case K_AREA_CB: {
         AreaCbLane l;
         l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
+        write_lane(st, plane, i0, l.out);
+        break;
+      }
+      case K_BB: {
+        BbLane l;
+        l.run(wx[pa], wy[pa], wx[pa + 1], wy[pa + 1], wx[pb], wy[pb],
+              wx[pb + 1], wy[pb + 1]);
         write_lane(st, plane, i0, l.out);
         break;
       }

@@ -2,9 +2,9 @@
 //
 // Replaces parallax_tpu/ops/pallas_step.py:_step_bwd_kernel (l.495) on
 // NVIDIA Hopper (sm_90a), for worlds whose pair groups are polygon-polygon
-// ("pp"), circle-circle ("cc"), circle-box ("cb") and circle-in-area-box
-// ("area_cb"), the kinds of the forward kernel (fused_step.cu); its box-box
-// ("bb") lanes are not ported yet.  For a world whose lane count is not a
+// ("pp"), circle-circle ("cc"), circle-box ("cb"), box-box ("bb") and
+// circle-in-area-box ("area_cb"), the kinds of the forward kernel
+// (fused_step.cu).  For a world whose lane count is not a
 // multiple of 8 (RoboCup, C=70; billiards8, C=60) the JAX package takes
 // jax.vjp of its split step instead of its kernel (pallas_step.py:660-673,
 // a Mosaic limit): that is the same VJP, and this kernel computes it for
@@ -42,11 +42,14 @@
 //      tangent, into the endpoints of the reference and incident edges;
 //      through the best axis into its edge's two vertices and, by the
 //      projection chains, into every vertex of both polygons.  A circle
-//      pair (CcLane, CbLane, AreaCbLane; its one lane, whose four
-//      cotangents it alone reads) into the rows it read: a circle's centre,
-//      a box's lb and ub (cb_lane_bwd, area_cb_lane_bwd: the clip of the
-//      centre into the box and the four floors split a tie's cotangent
-//      half and half; the face and wall selections take none).  Every term
+//      or box pair (CcLane, CbLane, BbLane, AreaCbLane; its one lane, whose
+//      four cotangents it alone reads) into the rows it read: a circle's
+//      centre, a box's lb and ub (cb_lane_bwd, bb_lane_bwd,
+//      area_cb_lane_bwd: the clip of the centre into the box, the floors,
+//      the box-box lane's nested minimum and its contact point's min and
+//      max split a tie's cotangent half and half; the face and wall
+//      selections take none; a box-box lane sends nothing to an angle,
+//      its rows translating without rotation).  Every term
 //      of a pair's adjoint is a product with one of its lane cotangents, so
 //      a pair whose cotangents are all zero (its lanes inactive, in a world
 //      without NaN) is skipped.  The vertex cotangents gwx, gwy
@@ -69,7 +72,8 @@
 // scratch (the solver's tape, 1,932 rows of B floats at these shapes, plus
 // 6n + 8C rows and the flags, about 77 MB at B=8192) is written once and
 // read about twice, mostly from L2.  A circle lane's adjoint is some 40 to
-// 80 float32 operations in registers, far below its pair's solve.  The design is the simple one: one
+// 80 float32 operations in registers (a box-box lane's about 50), far
+// below its pair's solve.  The design is the simple one: one
 // thread per world (64 blocks of 128 at B=8192, half the SMs), the world's
 // vertices and their cotangents in per-thread arrays, planes addressed
 // [row * B + b].  Spreading a world's pairs and lanes over a warp is later
@@ -439,6 +443,53 @@ __device__ void area_cb_lane_bwd(const AreaCbLane& l, const float* g,
   gby[1] -= g_hy;
 }
 
+// adjoint of BbLane::run (l, recomputed, at the boxes' rows la, ua of A and
+// lb, ub of B): g as for cc_lane_bwd; into A's rows 0 and 1 (ga) and B's
+// (gb).  pen = (where(is2, -m, where(is3, m, 0)), where(is0, -m, where(is1,
+// m, 0))) * active with m = max(best, 0), best the nested minimum of the
+// floored overlaps d = max(e, -eps); pt = (min(ua, ub) + max(la, lb)) / 2.
+// Every min and max splits a tie's cotangent half and half.
+__device__ void bb_lane_bwd(const BbLane& l, float lax, float lay, float uax,
+                            float uay, float lbx, float lby, float ubx,
+                            float uby, const float* g, float* gax, float* gay,
+                            float* gbx, float* gby) {
+  const float a = l.out.active ? 1.0f : 0.0f;
+  const float gpx = g[0] * a, gpy = g[1] * a;
+  const float g_m = (l.is2 ? -gpx : (l.is3 ? gpx : 0.0f)) +
+                    (l.is0 ? -gpy : (l.is1 ? gpy : 0.0f));
+  float g_best, g_floor, g01, g23, gd[4], ge[4];
+  max_bwd(l.best, 0.0f, g_m, g_best, g_floor);
+  min_bwd(minp(l.d[0], l.d[1]), minp(l.d[2], l.d[3]), g_best, g01, g23);
+  min_bwd(l.d[0], l.d[1], g01, gd[0], gd[1]);
+  min_bwd(l.d[2], l.d[3], g23, gd[2], gd[3]);
+  for (int k = 0; k < 4; ++k) max_bwd(l.e[k], -1e-8f, gd[k], ge[k], g_floor);
+  // e0 = uay - lby, e1 = uby - lay, e2 = uax - lbx, e3 = ubx - lax
+  float g_uax = ge[2], g_uay = ge[0], g_lax = -ge[3], g_lay = -ge[1];
+  float g_ubx = ge[3], g_uby = ge[1], g_lbx = -ge[2], g_lby = -ge[0];
+  float ga_, gb_;
+  const float hx = g[2] / 2.0f, hy = g[3] / 2.0f;
+  min_bwd(uax, ubx, hx, ga_, gb_);
+  g_uax += ga_;
+  g_ubx += gb_;
+  max_bwd(lax, lbx, hx, ga_, gb_);
+  g_lax += ga_;
+  g_lbx += gb_;
+  min_bwd(uay, uby, hy, ga_, gb_);
+  g_uay += ga_;
+  g_uby += gb_;
+  max_bwd(lay, lby, hy, ga_, gb_);
+  g_lay += ga_;
+  g_lby += gb_;
+  gax[0] += g_lax;
+  gay[0] += g_lay;
+  gax[1] += g_uax;
+  gay[1] += g_uay;
+  gbx[0] += g_lbx;
+  gby[0] += g_lby;
+  gbx[1] += g_ubx;
+  gby[1] += g_uby;
+}
+
 // whether any of the k cotangents g is nonzero
 __device__ bool any_nonzero(const float* g, int k) {
   for (int i = 0; i < k; ++i) {
@@ -511,6 +562,15 @@ fused_step_bwd_kernel(const BwdArgs args, const StepArgs st,
         AreaCbLane l;
         l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
         area_cb_lane_bwd(l, g, gwx + pa, gwy + pa, gwx + pb, gwy + pb);
+        break;
+      }
+      case K_BB: {
+        BbLane l;
+        l.run(wx[pa], wy[pa], wx[pa + 1], wy[pa + 1], wx[pb], wy[pb],
+              wx[pb + 1], wy[pb + 1]);
+        bb_lane_bwd(l, wx[pa], wy[pa], wx[pa + 1], wy[pa + 1], wx[pb], wy[pb],
+                    wx[pb + 1], wy[pb + 1], g, gwx + pa, gwy + pa, gwx + pb,
+                    gwy + pb);
         break;
       }
       default:

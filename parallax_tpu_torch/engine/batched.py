@@ -1,8 +1,7 @@
 """Batch-minor physics step in torch: integrate, collide, solve, joints.
 
-The port of ``parallax_tpu/engine/batched.py`` for the slice the
-LunarLander rollout runs.  The layouts stay the JAX package's, batch axis
-minor:
+The port of ``parallax_tpu/engine/batched.py``.  The layouts stay the JAX
+package's, batch axis minor:
 
 * body state      -> per-component ``[n, B]`` planes (``_SoA``)
 * world vertices  -> ``[G, V, B]`` x/y planes per pair group
@@ -19,10 +18,14 @@ autograd its reverse-pass kernel is the backward; its plain version is
 this module's split step.  Neither falls back: on CUDA tensors a world the
 fused kernel does not run raises.
 
-Pair groups: ``pp`` (the SAT manifold), ``cc``, ``cb`` and ``area_cb``
-(analytic, one lane a pair).  Not ported yet (raises
-``NotImplementedError``): ``bb``, ``cp``, ``bp`` and the other area kernels
-(ROADMAP Queue 1 item 8f).
+Pair groups: every kind of the JAX package's pair table.  ``pp`` and
+``bp`` (a box as a 4-corner polygon) take the SAT manifold, two lanes a
+pair; ``cc``, ``cb``, ``bb``, ``cp`` and the six containment kinds
+``area_*`` one analytic lane a pair.
+
+Public entry: :func:`step_batched`, the batched world step over ``[B, n,
+...]`` states (the JAX package's drop-in for ``jax.vmap(world.step)``);
+plane-space rollouts loop over :func:`physics_core`.
 """
 
 from __future__ import annotations
@@ -152,13 +155,24 @@ def _side_table(world, part_idx, vn: int) -> _SideTable:
     return world.static(("side", tuple(part_idx), vn), build)
 
 
-def _group_masks(world, g):
-    """Trimmed vertex counts and ``[G, V]`` edge masks of a pp group."""
+def _group_rows(world, g):
+    """The vertex rows each side of a group reads and their ``[G, V]`` edge
+    masks (JAX ``engine/batched.py:639-647``): a polygon's repeat-padded rows
+    up to the group's largest vertex count, a circle's centre, a box's
+    ``lb`` and ``ub``.  A ``bp`` pair's box enters the SAT as a 4-corner
+    polygon, so its mask is four real edges."""
 
     def build():
         Va = max(world.parts.nverts[i] for i in g.part_a)
         Vb = max(world.parts.nverts[i] for i in g.part_b)
-        ema = np.stack([edge_mask_for(world.parts.nverts[i], Va) for i in g.part_a])
+        if g.kernel in _ANALYTIC:
+            Va, Vb = min(Va, 2), min(Vb, 2)
+        elif g.kernel in ("area_cp", "area_bp"):
+            Va = min(Va, 2)  # the contained circle's centre, box's lb and ub
+        if g.kernel == "bp":
+            ema = np.stack([edge_mask_for(4, 4)] * g.size)
+        else:
+            ema = np.stack([edge_mask_for(world.parts.nverts[i], Va) for i in g.part_a])
         emb = np.stack([edge_mask_for(world.parts.nverts[i], Vb) for i in g.part_b])
         return (
             Va, Vb,
@@ -167,14 +181,6 @@ def _group_masks(world, g):
         )
 
     return world.static(("group", g), build)
-
-
-def _circle_box_rows(world, g):
-    """The vertex rows a circle/box group reads on each side: a circle's
-    centre, a box's ``lb`` and ``ub`` (JAX ``engine/batched.py:644-646``)."""
-    Va = min(max(world.parts.nverts[i] for i in g.part_a), 2)
-    Vb = min(max(world.parts.nverts[i] for i in g.part_b), 2)
-    return Va, Vb
 
 
 def _radii(world, g):
@@ -219,13 +225,8 @@ def build_static_tables(world) -> None:
     if world.config.narrowphase != "sat" or world.config.solver_mode != "block":
         return  # the batched step refuses such worlds (check_batched_support)
     for g in world.table.groups:
-        if g.kernel == "pp":
-            Va, Vb, _, _ = _group_masks(world, g)
-        elif g.kernel in _ANALYTIC:
-            Va, Vb = _circle_box_rows(world, g)
-            _radii(world, g)
-        else:
-            continue  # collide_batched refuses the group
+        Va, Vb, _, _ = _group_rows(world, g)
+        _radii(world, g)
         _side_table(world, g.part_a, Va)
         _side_table(world, g.part_b, Vb)
     if world.table.n_contacts:
@@ -510,8 +511,187 @@ def _area_cb_bm(cx, cy, r, lbx, lby, ubx, uby):
     return pen_x * active, pen_y * active, ptx, pty, active
 
 
+def _bb_bm(lax_, lay, uax, uay, lbx, lby, ubx, uby, eps=1e-8):
+    """Box-box lane: the axis of least overlap (ties: the earliest of A's top
+    into B's bottom, B's top into A's bottom, A's right into B's left, B's
+    right into A's left), pushed by that overlap, at the middle of the
+    overlap; touching boxes are separated.  Every min and max of the lane,
+    the ``-eps`` floors and the clip of the depth included, splits a tie's
+    cotangent half and half, as in JAX."""
+    separated = (uay <= lby) | (lay >= uby) | (uax <= lbx) | (lax_ >= ubx)
+    d0 = _max_c(uay - lby, -eps)
+    d1 = _max_c(uby - lay, -eps)
+    d2 = _max_c(uax - lbx, -eps)
+    d3 = _max_c(ubx - lax_, -eps)
+    best = torch.minimum(torch.minimum(d0, d1), torch.minimum(d2, d3))
+    is0 = best == d0
+    is1 = ~is0 & (best == d1)
+    is2 = ~is0 & ~is1 & (best == d2)
+    is3 = ~is0 & ~is1 & ~is2
+    m = _max_c(best, 0.0)
+    pen_x = torch.where(is2, -m, torch.where(is3, m, 0.0))
+    pen_y = torch.where(is0, -m, torch.where(is1, m, 0.0))
+    ptx = (torch.minimum(uax, ubx) + torch.maximum(lax_, lbx)) / 2
+    pty = (torch.minimum(uay, uby) + torch.maximum(lay, lby)) / 2
+    active = ~separated
+    return pen_x * active, pen_y * active, ptx, pty, active
+
+
+def _cp_bm(cx, cy, r, vx, vy, em):
+    """Circle-polygon lane on ``[G, V, B]`` polygon planes: outside, the push
+    from the nearest edge point (first nearest wins); with the centre inside
+    every real edge, the push out through the edge of largest signed
+    distance (first largest wins)."""
+    G, V, B = vx.shape
+    em3 = em[:, :, None]
+    nx_e = torch.roll(vx, -1, dims=1) - vx
+    ny_e = torch.roll(vy, -1, dims=1) - vy
+    el2 = nx_e * nx_e + ny_e * ny_e
+    inv_el2 = 1.0 / torch.where(el2 == 0, 1.0, el2)
+    # each edge's closest point to the centre
+    ox, oy = cx[:, None, :] - vx, cy[:, None, :] - vy
+    tx = _clip_c((ox * nx_e + oy * ny_e) * inv_el2, 0.0, 1.0)
+    prx = vx + tx * nx_e
+    pry = vy + tx * ny_e
+    dx = cx[:, None, :] - prx
+    dy = cy[:, None, :] - pry
+    d2 = torch.where(em3, dx * dx + dy * dy, INF)
+    best = vx.new_full((G, B), INF)
+    bpx = bpy = vx.new_zeros((G, B))
+    for v in range(V):
+        take = d2[:, v, :] < best
+        best = torch.where(take, d2[:, v, :], best)
+        bpx = torch.where(take, prx[:, v, :], bpx)
+        bpy = torch.where(take, pry[:, v, :], bpy)
+    inv_d = _rsqrt_safe(best)
+    dist = best * inv_d
+    # outward normals (CCW order)
+    onx = ny_e * _rsqrt_safe(el2)
+    ony = -nx_e * _rsqrt_safe(el2)
+    signed = torch.where(em3, ox * onx + oy * ony, -INF)
+    # contained: every real edge's signed distance <= 0 (or every >= 0)
+    inside = ((signed >= 0) | ~em3).all(1) | ((signed <= 0) | ~em3).all(1)
+    bs = vx.new_full((G, B), -INF)
+    bnx = bny = vx.new_zeros((G, B))
+    for v in range(V):
+        take = signed[:, v, :] > bs
+        bs = torch.where(take, signed[:, v, :], bs)
+        bnx = torch.where(take, onx[:, v, :], bnx)
+        bny = torch.where(take, ony[:, v, :], bny)
+    ux = torch.where(best == 0, 1.0, (cx - bpx) * inv_d)
+    uy = torch.where(best == 0, 0.0, (cy - bpy) * inv_d)
+    pen_x = torch.where(inside, bnx * (r - bs), ux * (r - dist))
+    pen_y = torch.where(inside, bny * (r - bs), uy * (r - dist))
+    ptx = torch.where(inside, cx, bpx)
+    pty = torch.where(inside, cy, bpy)
+    active = inside | (dist <= r)
+    return pen_x * active, pen_y * active, ptx, pty, active
+
+
+def _area_vb_bm(vxa, vya, lbx, lby, ubx, uby):
+    """Vertices ``[G, V, B]`` held inside an area box: the push back by how
+    far they poke past each side, and the contact at the vertex that pokes
+    furthest past the side of largest excess (sides: the earliest of right,
+    top, left, bottom; vertices: the first extreme one).  The extents are
+    ``amax``/``amin``, which split a tie's cotangent evenly over the tied
+    rows, as JAX's ``max``/``min`` do (``Tensor.max(dim)`` would not)."""
+    hix, hiy = vxa.amax(1), vya.amax(1)
+    lox, loy = vxa.amin(1), vya.amin(1)
+    dhx, dhy = hix - ubx, hiy - uby
+    dlx, dly = lbx - lox, lby - loy
+    over_hx = _max_c(dhx, 0.0)
+    over_hy = _max_c(dhy, 0.0)
+    over_lx = _max_c(dlx, 0.0)
+    over_ly = _max_c(dly, 0.0)
+    pen_x = -over_hx + over_lx
+    pen_y = -over_hy + over_ly
+    depth = torch.maximum(torch.maximum(over_hx, over_hy), torch.maximum(over_lx, over_ly))
+    active = depth > 0
+    best = torch.maximum(torch.maximum(dhx, dhy), torch.maximum(dlx, dly))
+    is_hx = best == dhx
+    is_hy = ~is_hx & (best == dhy)
+    is_lx = ~is_hx & ~is_hy & (best == dlx)
+
+    def at(idx):
+        return (torch.gather(vxa, 1, idx[:, None, :])[:, 0, :],
+                torch.gather(vya, 1, idx[:, None, :])[:, 0, :])
+
+    x_hx, y_hx = at(vxa.argmax(1))
+    x_hy, y_hy = at(vya.argmax(1))
+    x_lx, y_lx = at(vxa.argmin(1))
+    x_ly, y_ly = at(vya.argmin(1))
+    ptx = torch.where(is_hx, x_hx, torch.where(is_hy, x_hy, torch.where(is_lx, x_lx, x_ly)))
+    pty = torch.where(is_hx, y_hx, torch.where(is_hy, y_hy, torch.where(is_lx, y_lx, y_ly)))
+    return pen_x * active, pen_y * active, ptx, pty, active
+
+
+def _poly_inward_normals_bm(avx, avy, em):
+    """Unit inward edge normals of convex area polygons: ``[G, Ve, B]``
+    planes and the ``[G, Ve, B]`` mask of real edges of nonzero length."""
+    ex = torch.roll(avx, -1, dims=1) - avx
+    ey = torch.roll(avy, -1, dims=1) - avy
+    el2 = ex * ex + ey * ey
+    inv = _rsqrt_safe(el2)
+    return -ey * inv, ex * inv, em[:, :, None] & (el2 > 0)
+
+
+def _area_cp_bm(cx, cy, r, avx, avy, em):
+    """Circle held inside an area polygon: the push in along the edge the
+    circle pokes furthest past (first largest wins).  Unlike the other
+    lanes, the push is not masked by ``active``."""
+    ninx, niny, valid = _poly_inward_normals_bm(avx, avy, em)
+    d_in = (cx[:, None, :] - avx) * ninx + (cy[:, None, :] - avy) * niny
+    viol = torch.where(valid, r[:, :, None] - d_in, -INF)  # [G, Ve, B]
+    G, Ve, B = viol.shape
+    best = avx.new_full((G, B), -INF)
+    bnx = bny = avx.new_zeros((G, B))
+    for e in range(Ve):
+        take = viol[:, e, :] > best
+        best = torch.where(take, viol[:, e, :], best)
+        bnx = torch.where(take, ninx[:, e, :], bnx)
+        bny = torch.where(take, niny[:, e, :], bny)
+    depth = _max_c(best, 0.0)
+    return bnx * depth, bny * depth, cx - bnx * r, cy - bny * r, best > 0
+
+
+def _area_vp_bm(vxa, vya, avx, avy, em):
+    """Vertices ``[G, Va, B]`` held inside an area polygon: the vertex that
+    pokes furthest past any edge, pushed in along that edge (first largest
+    wins, over edges and then over vertices); the push is not masked."""
+    ninx, niny, valid = _poly_inward_normals_bm(avx, avy, em)
+    G, Ve, B = ninx.shape
+    depth = avx.new_full((G, B), -INF)
+    bnx = bny = ptx = pty = avx.new_zeros((G, B))
+    for v in range(vxa.shape[1]):
+        vx_v = vxa[:, v : v + 1, :]
+        vy_v = vya[:, v : v + 1, :]
+        viol = torch.where(valid, -((vx_v - avx) * ninx + (vy_v - avy) * niny), -INF)
+        pv = avx.new_full((G, B), -INF)
+        enx = eny = avx.new_zeros((G, B))
+        for e in range(Ve):
+            take = viol[:, e, :] > pv
+            pv = torch.where(take, viol[:, e, :], pv)
+            enx = torch.where(take, ninx[:, e, :], enx)
+            eny = torch.where(take, niny[:, e, :], eny)
+        take = pv > depth
+        depth = torch.where(take, pv, depth)
+        bnx = torch.where(take, enx, bnx)
+        bny = torch.where(take, eny, bny)
+        ptx = torch.where(take, vxa[:, v, :], ptx)
+        pty = torch.where(take, vya[:, v, :], pty)
+    d = _max_c(depth, 0.0)
+    return bnx * d, bny * d, ptx, pty, depth > 0
+
+
+def _box_corners(xv, yv):
+    """A box's ``[G, 2, B]`` (lb, ub) rows as the 4-corner ``[G, 4, B]``
+    planes of ``box_corners``' order: upper, (ux, ly), lower, (lx, uy)."""
+    lx, ux, ly, uy = xv[:, 0], xv[:, 1], yv[:, 0], yv[:, 1]
+    return torch.stack([ux, ux, lx, lx], dim=1), torch.stack([uy, ly, ly, uy], dim=1)
+
+
 # the analytic one-lane kernels on circles' centre rows and boxes' (lb, ub)
-_ANALYTIC = ("cc", "cb", "area_cb")
+_ANALYTIC = ("cc", "cb", "bb", "area_cb")
 
 
 def _overlap_bm(alx, ahx, aly, ahy, blx, bhx, bly, bhy):
@@ -577,50 +757,64 @@ def collide_batched(
             return torch.stack(lx), torch.stack(ly)
         return _side_verts(world, s, tuple(idx), vn)
 
+    broadphase = world.config.broadphase
     for g in world.table.groups:
-        if g.kernel in _ANALYTIC:
-            # circles' centre rows and boxes' (lb, ub) rows (an area_cb pair's
-            # contained circle is side A, the area box side B); one lane a
-            # pair, weight 1, no partner; these kernels mask themselves, so
-            # the broadphase does not touch them
-            Va, Vb = _circle_box_rows(world, g)
-            axv, ayv = side(g.part_a, Va)
-            bxv, byv = side(g.part_b, Vb)
-            ra, rb = _radii(world, g)
-            if g.kernel == "cc":
-                lane = _cc_bm(axv[:, 0], ayv[:, 0], ra, bxv[:, 0], byv[:, 0], rb)
-            else:
-                box_lane = _cb_bm if g.kernel == "cb" else _area_cb_bm
-                lane = box_lane(axv[:, 0], ayv[:, 0], ra,
-                                bxv[:, 0], byv[:, 0], bxv[:, 1], byv[:, 1])
-            pieces.append((*lane, torch.ones_like(lane[0])))
-            continue
-        if g.kernel != "pp":
-            raise NotImplementedError(
-                f"pair-group kernel {g.kernel!r} is not ported yet: bb, cp, bp "
-                "and the area kernels other than area_cb (ROADMAP Queue 1 item "
-                "8f); the batched torch path runs 'pp', 'cc', 'cb' and "
-                "'area_cb' groups"
-            )
-        Gn = g.size
-        Va, Vb, ema, emb = _group_masks(world, g)
+        k = g.kernel
+        Va, Vb, ema, emb = _group_rows(world, g)
         axv, ayv = side(g.part_a, Va)
         bxv, byv = side(g.part_b, Vb)
-        px, py, qx, qy, act, wgt = _pp_manifold_bm(
-            axv, ayv, ema, bxv, byv, emb, inactive_without_axis
-        )
-        if world.config.broadphase:
-            ov = _overlap_bm(
-                axv.amin(1), axv.amax(1), ayv.amin(1), ayv.amax(1),
-                bxv.amin(1), bxv.amax(1), byv.amin(1), byv.amax(1),
-            )[:, None, :]
-            act = act & ov
-            px, py = px * ov, py * ov
-        pieces.append(
-            (px.reshape(2 * Gn, B), py.reshape(2 * Gn, B),
-             qx.reshape(2 * Gn, B), qy.reshape(2 * Gn, B),
-             act.reshape(2 * Gn, B), wgt.reshape(2 * Gn, B))
-        )
+        ra, rb = _radii(world, g)
+        if k in ("pp", "bp"):
+            if k == "bp":  # the box as a 4-corner CCW polygon
+                lbx, lby, ubx, uby = axv[:, 0], ayv[:, 0], axv[:, 1], ayv[:, 1]
+                axv = torch.stack([lbx, ubx, ubx, lbx], dim=1)
+                ayv = torch.stack([lby, lby, uby, uby], dim=1)
+            px, py, qx, qy, act, wgt = _pp_manifold_bm(
+                axv, ayv, ema, bxv, byv, emb, inactive_without_axis
+            )
+            if broadphase:
+                ov = _overlap_bm(
+                    axv.amin(1), axv.amax(1), ayv.amin(1), ayv.amax(1),
+                    bxv.amin(1), bxv.amax(1), byv.amin(1), byv.amax(1),
+                )[:, None, :]
+                act = act & ov
+                px, py = px * ov, py * ov
+            pieces.append(tuple(x.reshape(2 * g.size, B) for x in (px, py, qx, qy, act, wgt)))
+            continue
+        # one lane a pair, weight 1, no partner.  Side A is a circle's centre
+        # row or a box's (lb, ub) rows, or the contained body of an area
+        # pair (side B the area); of these kernels only cp takes the
+        # broadphase, the others mask themselves
+        if k == "cc":
+            lane = _cc_bm(axv[:, 0], ayv[:, 0], ra, bxv[:, 0], byv[:, 0], rb)
+        elif k in ("cb", "area_cb"):
+            box_lane = _cb_bm if k == "cb" else _area_cb_bm
+            lane = box_lane(axv[:, 0], ayv[:, 0], ra,
+                            bxv[:, 0], byv[:, 0], bxv[:, 1], byv[:, 1])
+        elif k == "bb":
+            lane = _bb_bm(axv[:, 0], ayv[:, 0], axv[:, 1], ayv[:, 1],
+                          bxv[:, 0], byv[:, 0], bxv[:, 1], byv[:, 1])
+        elif k == "cp":
+            lane = _cp_bm(axv[:, 0], ayv[:, 0], ra, bxv, byv, emb)
+            if broadphase:
+                cx, cy = axv[:, 0], ayv[:, 0]
+                ov = _overlap_bm(
+                    cx - ra, cx + ra, cy - ra, cy + ra,
+                    bxv.amin(1), bxv.amax(1), byv.amin(1), byv.amax(1),
+                )
+                px, py, qx, qy, act = lane
+                lane = (px * ov, py * ov, qx, qy, act & ov)
+        elif k in ("area_pb", "area_bb"):
+            vx, vy = (axv, ayv) if k == "area_pb" else _box_corners(axv, ayv)
+            lane = _area_vb_bm(vx, vy, bxv[:, 0], byv[:, 0], bxv[:, 1], byv[:, 1])
+        elif k == "area_cp":
+            lane = _area_cp_bm(axv[:, 0], ayv[:, 0], ra, bxv, byv, emb)
+        elif k in ("area_pp", "area_bp"):
+            vx, vy = (axv, ayv) if k == "area_pp" else _box_corners(axv, ayv)
+            lane = _area_vp_bm(vx, vy, bxv, byv, emb)
+        else:  # pragma: no cover: the pair table names no other kind
+            raise ValueError(f"pair-group kernel {k!r}")
+        pieces.append((*lane, torch.ones_like(lane[0])))
 
     if len(pieces) == 1:
         return ContactsBM(*pieces[0])
@@ -874,6 +1068,35 @@ def integrate_bm(world, s: _SoA, dt: Optional[float] = None, accel=None):
     if cfg.integrator == "symplectic":
         return integrate(grav(s)), dt
     return grav(integrate(s)), dt
+
+
+def step_batched(
+    world,
+    state: BodyState,
+    dt: Optional[float] = None,
+    accel=None,
+    terrain_override=None,
+    pre=None,
+    post=None,
+) -> tuple[BodyState, ContactsBM]:
+    """Batched world step, batch axis leading in ``state`` (``[B, n, ...]``).
+
+    The JAX package's batched equivalent of ``jax.vmap(world.step)`` for
+    ``solver_mode="block"`` and ``narrowphase="sat"``: it runs
+    :func:`physics_core` in the batch-minor frame, so ``use_cuda_solver`` and
+    ``use_cuda_fused`` choose the kernels as they do for the envs.  Returns
+    ``(state, ContactsBM [C, B])`` (the fused step exports only ``active``).
+
+    ``pre``/``post``: optional ``(_SoA) -> _SoA`` hooks run in the
+    batch-minor frame, before the integration and after the joints.
+    """
+    s = _to_soa(state)
+    if pre is not None:
+        s = pre(s)
+    s, con = physics_core(world, s, dt=dt, accel=accel, terrain_override=terrain_override)
+    if post is not None:
+        s = post(s)
+    return _from_soa(s), con
 
 
 def physics_core(

@@ -1,22 +1,22 @@
 """The fused physics step: CUDA kernels, wrapper and plain versions.
 
 ``csrc/fused_step.cu`` replaces ``parallax_tpu/ops/pallas_step.py``'s
-``_step_kernel`` for worlds whose pair groups are polygon-polygon (``pp``),
-circle-circle (``cc``), circle-box (``cb``) and circle-in-area-box
-(``area_cb``): one launch runs integration and gravity, the world-frame
-vertices (with the per-world terrain override), each pair's contact lanes
-(the SAT manifold of a ``pp`` pair, the analytic lane of a ``cc``, ``cb``
-or ``area_cb`` pair), the contact solve and the joints, one CUDA thread per
-world.  The contact geometry stays inside the kernel; it returns the body
-planes and the ``[C, B]`` active flags.  Its plain version,
-:func:`fused_step_plain`, is the split step of ``engine.batched`` with the
-plain solver.  ``csrc/fused_step_bwd.cu`` replaces its reverse pass,
-``_step_bwd_kernel``, for the same four kinds: it recomputes the step from
-the primal inputs and returns the cotangents of the body planes and of the
-terrain planes; its plain version, :func:`fused_step_bwd_plain`, is
-autograd of :func:`fused_step_plain`.  The JAX kernels' box-box (``bb``)
-lanes are not ported yet (ROADMAP Queue 1 item 8f): on CUDA tensors such a
-world raises.
+``_step_kernel`` for worlds whose pair groups are the JAX kernel's five
+kinds: polygon-polygon (``pp``), circle-circle (``cc``), circle-box
+(``cb``), box-box (``bb``) and circle-in-area-box (``area_cb``).  One launch
+runs integration and gravity, the world-frame vertices (with the per-world
+terrain override), each pair's contact lanes (the SAT manifold of a ``pp``
+pair, the analytic lane of the others), the contact solve and the joints,
+one CUDA thread per world.  The contact geometry stays inside the kernel;
+it returns the body planes and the ``[C, B]`` active flags.  Its plain
+version, :func:`fused_step_plain`, is the split step of ``engine.batched``
+with the plain solver.  ``csrc/fused_step_bwd.cu`` replaces its reverse
+pass, ``_step_bwd_kernel``, for the same five kinds: it recomputes the step
+from the primal inputs and returns the cotangents of the body planes and
+of the terrain planes; its plain version, :func:`fused_step_bwd_plain`, is
+autograd of :func:`fused_step_plain`.  A world with a kind neither the JAX
+fused kernel nor these have (``cp``, ``bp`` and the area kinds other than
+``area_cb``) raises: it runs on the split step.
 
 :func:`physics_core_fused` chooses by the tensors' device and nothing
 else: on CPU tensors it runs the plain version, and autograd of its plain
@@ -36,22 +36,22 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from parallax_tpu_torch.geometry.shapes import BOX, MAX_VERTS, edge_mask_for
+from parallax_tpu_torch.geometry.shapes import BOX, MAX_VERTS
 
 # kernel launches in this process (see module docstring)
 launches = 0
 bwd_launches = 0
 
-# pair-group kernels the fused kernel and its reverse pass run; the JAX
-# kernel's bb lanes are not ported yet (ROADMAP Queue 1 item 8f)
-FUSED_KERNELS = ("pp", "cc", "cb", "area_cb")
+# pair-group kernels the fused kernel and its reverse pass run: those of
+# the JAX fused kernel (pallas_step.py:81)
+FUSED_KERNELS = ("pp", "cc", "cb", "bb", "area_cb")
 # the kernels' per-thread limits (csrc/fused_step.cuh, contact_solver.cuh);
 # the launch refuses more as well
 MAX_PARTS = 16
 MAX_BODIES = 64
 # kinds of pair_i's Q_KIND column, in the order of csrc/fused_step.cuh's
 # PairKind
-_KINDS = {"pp": 0, "cc": 1, "cb": 2, "area_cb": 3}
+_KINDS = {"pp": 0, "cc": 1, "cb": 2, "area_cb": 3, "bb": 4}
 
 
 def supports_fused_step(world) -> bool:
@@ -103,13 +103,16 @@ def check_fused_step(world) -> None:
 
 def _check_kinds(world) -> set:
     """The world's pair-group kernels; raise unless the fused kernel has
-    lanes for each of them."""
+    lanes for each of them.  The kinds it lacks the JAX fused kernel lacks
+    too: there such a world takes the split step without a word
+    (``engine/batched.py:1159-1167``); here it raises."""
     kernels = {g.kernel for g in world.table.groups}
-    unported = sorted(kernels - set(FUSED_KERNELS))
-    if unported:
-        raise NotImplementedError(
-            f"the fused step kernel runs {FUSED_KERNELS} pair groups; "
-            f"{unported} are not ported yet (ROADMAP Queue 1 item 8f)"
+    other = sorted(kernels - set(FUSED_KERNELS))
+    if other:
+        raise ValueError(
+            f"the fused step runs {FUSED_KERNELS} pair groups, as the JAX "
+            f"package's fused kernel does; this world has {other}: run it on "
+            "the split step (use_cuda_fused=False)"
         )
     return kernels
 
@@ -133,14 +136,15 @@ class FusedOperands(NamedTuple):
 
 def fused_operands(world) -> FusedOperands:
     """Built once per world: each part's body, rotate flag and the number of
-    vertex rows its groups read (their trimmed ``Va``/``Vb``: a circle's
-    centre and a box's ``lb``/``ub`` for the one-lane kinds, as at
-    ``pallas_step.py:108-113``), and per pair of the table, in lane order,
-    its parts, trimmed row counts, edge masks (``engine.batched._group_masks``)
-    as bits, its first lane (groups concatenate in ``world.table.groups``
-    order: two lanes a ``pp`` pair, one a ``cc``, ``cb`` or ``area_cb``
-    pair), its kind and its two radii.  A world with a group the kernel has no lanes for
-    raises, so the operands never carry a kind the kernel would misread."""
+    vertex rows its groups read, and per pair of the table, in lane order,
+    its parts, the rows and edge masks (as bits) of the split collide's
+    ``engine.batched._group_rows`` (a circle's centre and a box's ``lb``/
+    ``ub`` for the one-lane kinds, as at ``pallas_step.py:108-113``), its
+    first lane (groups concatenate in ``world.table.groups`` order: two
+    lanes a ``pp`` pair, one a pair of any other kind), its kind and its two
+    radii.  A world with a group the kernel has no lanes for raises, so the
+    operands never carry a kind the kernel would misread."""
+    from parallax_tpu_torch.engine.batched import _group_rows
 
     def build():
         _check_kinds(world)
@@ -150,15 +154,10 @@ def fused_operands(world) -> FusedOperands:
         nv = np.zeros(P, np.int32)
         pairs, radii, lane = [], [], 0
         for g in world.table.groups:
-            Va = max(parts.nverts[i] for i in g.part_a)
-            Vb = max(parts.nverts[i] for i in g.part_b)
-            if g.kernel != "pp":
-                Va, Vb = min(Va, 2), min(Vb, 2)
-            for a, b in zip(g.part_a, g.part_b):
+            Va, Vb, ema, emb = _group_rows(world, g)
+            for a, b, ma, mb in zip(g.part_a, g.part_b, ema.tolist(), emb.tolist()):
                 nv[a] = max(nv[a], Va)
                 nv[b] = max(nv[b], Vb)
-                ma = edge_mask_for(parts.nverts[a], Va)
-                mb = edge_mask_for(parts.nverts[b], Vb)
                 pairs.append([a, b, Va, Vb, _bits(ma), _bits(mb), lane,
                               _KINDS[g.kernel]])
                 radii.append([radius[a], radius[b]])
@@ -274,6 +273,7 @@ def physics_core_fused(world, s, terrain_override=None, dt=None, accel=None):
 
     device = s.px.device
     if device.type == "cpu":
+        _check_kinds(world)
         return fused_step_plain(world, s, terrain_override, dt, accel)
     if device.type != "cuda":
         raise ValueError(f"fused step: no kernel for device {device}")

@@ -12,24 +12,31 @@ import numpy as np
 import pytest
 import torch
 from torch_scenarios import (
+    KIND_WORLDS,
     active_kinds,
     area_tie_case,
+    bb_tie_case,
     billiards_pairs_state,
     cb_tie_case,
+    cotangents,
+    crate_kick_loss,
+    crate_overlap_state,
+    crate_world,
+    kinds_state,
+    kinds_world,
     mixed_state,
     mixed_world,
     overlap_state,
+    pair_world,
     robocup_overlap_state,
     tie_fused_case,
     tie_solve_case,
 )
 
 from parallax_tpu_torch.engine import batched as tb
-from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
 from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
 from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
 from parallax_tpu_torch.envs.robocup import RoboCup, RoboCupConfig
-from parallax_tpu_torch.geometry.shapes import box
 from parallax_tpu_torch.ops import contact_solver, fused_step
 from parallax_tpu_torch.parallel import rollout
 
@@ -446,12 +453,14 @@ def test_reverse_kernels_at_a_clamp_tie_match_plain_vjps_on_card(cuda_env, fused
 
 @pytest.mark.cuda
 def test_fused_step_on_circle_lanes_refuses_autograd_on_card(billiards_env):
-    """The reverse-pass kernel walks back the cc and cb lanes: under
-    autograd the fused step on billiards launches the forward kernel, and
-    its backward the reverse-pass kernel, and no solver kernel.  What the
-    kernels do not run raises before any launch, under autograd or not: a
-    box-box world (ROADMAP item 8f) and a world over the kernel's 16 parts.
-    Neither falls back to the split step."""
+    """The reverse-pass kernel walks back every kind the forward runs: under
+    autograd the fused step on billiards, and on a box resting on a box
+    (bb), launches the forward kernel, and its backward the reverse-pass
+    kernel, and no solver kernel.  What the kernels do not run raises
+    before any launch, under autograd or not: a world with a kind no fused
+    kernel has (a circle on a polygon, cp: ValueError naming the split
+    step) and a world over the kernel's 16 parts.  Neither falls back to
+    the split step."""
     world = billiards_env.world
     s = overlap_state(billiards_env, 256, 3, 1.0, 0.03, 0.02)
     vx = s.vx.clone().requires_grad_(True)
@@ -460,20 +469,21 @@ def test_fused_step_on_circle_lanes_refuses_autograd_on_card(billiards_env):
     (g,) = torch.autograd.grad(out.px.sum(), vx)
     assert (fused_step.launches, fused_step.bwd_launches) == (f0 + 1, b0 + 1)
     assert torch.isfinite(g).all() and g.abs().max() > 0
-    bodies = [BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))]),
-              BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf, inertia=np.inf,
-                      position=(0.0, -0.5))]
-    bb, st = World.build(bodies, WorldConfig(broadphase=False), device="cuda")
-    sb = tb._to_soa(type(st)(*(x[None] for x in st)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
-        fused_step.physics_core_fused(bb, sb._replace(px=sb.px.clone().requires_grad_(True)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
-        fused_step.physics_core_fused(bb, sb)
+    bb, sb = pair_world("bb", "cuda", broadphase=False, use_cuda_fused=True)
+    py = sb.py.clone().requires_grad_(True)
+    out, con = tb.physics_core(bb, sb._replace(py=py))
+    (g,) = torch.autograd.grad(out.py.sum(), py)
+    assert con.active.all() and torch.isfinite(g).all() and g.abs().max() > 0
+    assert (fused_step.launches, fused_step.bwd_launches) == (f0 + 2, b0 + 2)
+    cp, sc = pair_world("cp", "cuda")
+    for grad in (True, False):
+        with pytest.raises(ValueError, match="split step"):
+            fused_step.physics_core_fused(cp, sc._replace(px=sc.px.clone().requires_grad_(grad)))
     big = Billiards(BilliardsConfig(n_object=47, use_cuda_fused=True), device="cuda")
     sb = overlap_state(big, 128, 3, 1.0, 0.03, 0.02)
     with pytest.raises(ValueError, match="at most 16 parts"):
         fused_step.physics_core_fused(big.world, sb)
-    assert (fused_step.launches, fused_step.bwd_launches) == (f0 + 1, b0 + 1)
+    assert (fused_step.launches, fused_step.bwd_launches) == (f0 + 2, b0 + 2)
     assert contact_solver.launches == s0
 
 
@@ -577,3 +587,86 @@ def test_robocup_train_on_card_matches_cpu(robocup_env):
         assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), label
         for a, b in zip(grads_g, grads_c):
             assert (a - b).norm() <= 1e-4 * b.norm(), label
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+
+
+@pytest.fixture(scope="module")
+def crates(card):
+    return crate_world("cuda", fused=True)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["overlap", "tie"])
+def test_fused_bb_lanes_match_plain_versions_on_card(crates, case):
+    """The fused kernel's bb lane (with the pile's cc and cb lanes) and its
+    adjoint against the plain versions on the same CUDA tensors: the crate
+    pile's overlap state at B=1024, and the bb lane's exact ties at B=1.
+    Forward: flags equal, planes within atol 1e-5; reverse pass: rtol
+    2e-4, atol 1e-5."""
+    if case == "overlap":
+        s, cot = crate_overlap_state(crates, 1024), cotangents(crates.n_bodies, 1024, 5, "cuda")
+    else:
+        s, cot = bb_tie_case(crates, "cuda")
+    f0, b0 = fused_step.launches, fused_step.bwd_launches
+    got_s, got_c = fused_step.physics_core_fused(crates, s)
+    got = fused_step.fused_step_bwd(crates, s, None, cot)[0]
+    assert (fused_step.launches, fused_step.bwd_launches) == (f0 + 1, b0 + 1)
+    want_s, want_c = fused_step.fused_step_plain(crates, s)
+    want = fused_step.fused_step_bwd_plain(crates, s, None, cot)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got_c.active, want_c.active)
+    on = active_kinds(crates, want_c.active)
+    assert on["bb"] > 0 and (case == "tie" or min(on.values()) > 0), on
+    for f, x, y in zip(got_s._fields, got_s, want_s):
+        assert (x - y).abs().max().item() <= ATOL, f
+    for f, x, y in zip(s._fields, got, want):
+        assert torch.isfinite(x).all(), f
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL, msg=f)
+    assert all(x.abs().max() > 0 for x in got[:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["split", "fused"])
+def test_step_batched_on_card_launches_its_kernels(card, path):
+    """``step_batched`` on the crate pile on the card: 100 steps launch the
+    solver kernel 100 times on the split step and the fused kernel 100
+    times (and no solver) on the fused step; the gradient of the crates'
+    mean height through 10 of them wrt a kick shared by the fleet
+    (``crate_kick_loss``), in 2 checkpointed segments, runs 10 reverse
+    passes of that path's kernel and matches the CPU's within 1e-4
+    relative in norm.  The mixed and area worlds run on the split step
+    there too."""
+    fused = path == "fused"
+    world, _ = crate_world("cuda", fused=fused)
+    state = tb._from_soa(crate_overlap_state(world, 256))
+    c0 = (contact_solver.launches, fused_step.launches)
+    with torch.no_grad():
+        for _ in range(100):
+            state, con = tb.step_batched(world, state)
+    torch.cuda.synchronize()
+    counts = (contact_solver.launches - c0[0], fused_step.launches - c0[1])
+    assert counts == ((0, 100) if fused else (100, 0))
+    assert torch.isfinite(state.pos).all() and con.active.shape == (88, 256)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        w, _ = crate_world(dev, fused=fused)
+        u = torch.zeros(2, device=dev, requires_grad=True)
+        b0 = (contact_solver.bwd_launches, fused_step.bwd_launches)
+        loss, _ = crate_kick_loss(w, crate_overlap_state(w, 64), u, 10, 2)
+        (grads[dev],) = torch.autograd.grad(loss, u)
+        if dev == "cuda":
+            bwd = (contact_solver.bwd_launches - b0[0], fused_step.bwd_launches - b0[1])
+            assert bwd == ((0, 10) if fused else (10, 0))
+    g, c = grads["cuda"].cpu(), grads["cpu"]
+    assert (g - c).norm() <= 1e-4 * c.norm() and c.norm() > 0
+    if not fused:
+        for name in KIND_WORLDS:
+            w, st0 = kinds_world(name, "cuda", use_cuda_solver=True)
+            n0 = contact_solver.launches
+            out, _ = tb.step_batched(w, tb._from_soa(kinds_state(name, w, st0, 64)))
+            assert contact_solver.launches == n0 + 1 and torch.isfinite(out.pos).all()

@@ -36,14 +36,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_scenarios import active_kinds, robocup_overlap_state
+from torch_scenarios import active_kinds, pair_world, robocup_overlap_state
 
 from parallax_tpu.engine import batched as jb
 from parallax_tpu.envs.robocup import RoboCup as JaxRoboCup
 from parallax_tpu_torch.engine import batched as tb
-from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
 from parallax_tpu_torch.envs.robocup import BALL_RADIUS, RoboCup, RoboCupConfig
-from parallax_tpu_torch.geometry.shapes import box
 from parallax_tpu_torch.ops import fused_step
 
 torch.set_num_threads(2)
@@ -180,8 +178,8 @@ def test_both_kernels_dispatch_every_kind_by_name():
 def test_robocup_operands_and_gates(robocup):
     """RoboCup's fused operands: each area_cb pair carries the contained
     circle's radius and 0 for the area box, one lane each, 70 in all; the
-    gate takes RoboCup under autograd, and refuses a box-box world, naming
-    the ROADMAP item of the bb lanes."""
+    gate takes RoboCup under autograd and a box-box world, and refuses a
+    world with a kind no fused kernel runs, naming the split step."""
     env, _, s = robocup
     world = env.world
     ops = fused_step.fused_operands(world)
@@ -195,14 +193,11 @@ def test_robocup_operands_and_gates(robocup):
     assert fused_step._lane_count(world) == world.table.n_contacts == 70
     assert fused_step.supports_fused_step(world) and world.config.broadphase
     fused_step.check_fused_step(world)
-    bodies = [
-        BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))], position=(0.0, 0.0)),
-        BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf,
-                inertia=np.inf, position=(0.0, -0.5)),
-    ]
-    bb, _ = World.build(bodies, WorldConfig(broadphase=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
-        fused_step.check_fused_step(bb)
+    # a box on a box (bb) passes the gate; a circle on a polygon (cp), a kind
+    # the JAX fused kernel lacks too, raises and names the split step
+    fused_step.check_fused_step(pair_world("bb", broadphase=False)[0])
+    with pytest.raises(ValueError, match="split step"):
+        fused_step.check_fused_step(pair_world("cp", broadphase=False)[0])
     # on CPU tensors autograd of the plain version is the backward
     px = s.px[:, :4].clone().requires_grad_(True)
     s4 = type(s)(*(x[:, :4] for x in s))._replace(px=px)

@@ -18,14 +18,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_scenarios import mixed_world, overlap_state
+from torch_scenarios import mixed_world, overlap_state, pair_world
 
 from parallax_tpu.engine import batched as jb
 from parallax_tpu.envs.billiards import Billiards as JaxBilliards
 from parallax_tpu.ops import pallas_step
-from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
 from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
-from parallax_tpu_torch.geometry.shapes import box
 from parallax_tpu_torch.ops import fused_step
 
 torch.set_num_threads(2)
@@ -137,23 +135,33 @@ def test_lane_offsets_follow_the_pair_table():
 def test_gates_follow_jax_and_refuse_autograd_on_circle_lanes(billiards):
     """Billiards keeps its broadphase on (the default): its circle and box
     lanes mask themselves, so the fused step takes it, as JAX's gate does.
-    The reverse-pass kernel walks back the cc and cb lanes too, so the gate
-    takes it under autograd as well; what it refuses under autograd (and
-    without) is a kind neither kernel has lanes for, box-box, naming
-    ROADMAP item 8f.  physics_core_fused runs the gate before any launch.
-    On CPU tensors the plain version's autograd is the backward and runs."""
+    The reverse-pass kernel walks back every kind the forward runs, so the
+    gate takes it under autograd as well: a box on a box (bb) among them.
+    What it refuses under autograd (and without) is a kind that neither
+    the JAX fused kernel nor these have, a circle on a polygon (cp): it
+    raises ValueError naming the split step.  physics_core_fused runs the
+    gate before any launch.  On CPU tensors the plain version's autograd is
+    the backward and runs."""
     env, jenv = billiards
     assert env.world.config.broadphase and jenv.world.config.broadphase
     assert fused_step.supports_fused_step(env.world)
     assert pallas_step.supports_fused_step(jenv.world)
     fused_step.check_fused_step(env.world)
-    bb, _ = World.build(
-        [BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))]),
-         BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf, inertia=np.inf,
-                 position=(0.0, -0.5))],
-        WorldConfig(broadphase=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
-        fused_step.check_fused_step(bb)
+    for kind in ("bb", "cp"):
+        world, sk = pair_world(kind)
+        for grad in (False, True):
+            py = sk.py.clone().requires_grad_(grad)
+            if kind == "bb":
+                fused_step.check_fused_step(world)
+                out, _ = fused_step.physics_core_fused(world, sk._replace(py=py))
+                if grad:
+                    (g,) = torch.autograd.grad(out.py.sum(), py)
+                    assert torch.isfinite(g).all() and g.abs().max() > 0
+                continue
+            with pytest.raises(ValueError, match="split step"):
+                fused_step.check_fused_step(world)
+            with pytest.raises(ValueError, match="split step"):
+                fused_step.physics_core_fused(world, sk._replace(py=py))
     s = overlap_state(env, 4, 3, 1.0, 0.03, 0.02)
     px = s.px.clone().requires_grad_(True)
     out, _ = fused_step.physics_core_fused(env.world, s._replace(px=px))
@@ -177,7 +185,7 @@ def test_python_limits_match_the_kernel_sources():
     ``csrc/fused_step.cuh`` and ``csrc/contact_solver.cuh`` equal
     ``MAX_PARTS``, ``MAX_BODIES`` and ``geometry.shapes.MAX_VERTS``; and the
     pair kinds the host writes into ``pair_i`` are ``PairKind``'s, in its
-    order."""
+    order, and they are the JAX fused kernel's."""
     import re
     from pathlib import Path
 
@@ -195,3 +203,6 @@ def test_python_limits_match_the_kernel_sources():
     (enum,) = re.findall(r"enum PairKind \{([^}]*)\}", (csrc / "fused_step.cuh").read_text())
     kinds = {k.strip(): v for v, k in enumerate(enum.split(","))}
     assert kinds == {"K_" + k.upper(): v for k, v in fused_step._KINDS.items()}
+    assert kinds["K_BB"] == fused_step._KINDS["bb"] == 4
+    assert fused_step.FUSED_KERNELS == pallas_step.FUSED_KERNELS
+    assert set(fused_step._KINDS) == set(fused_step.FUSED_KERNELS)

@@ -25,9 +25,7 @@ from parallax_tpu.envs.lunar_lander import LanderConfig as JaxLanderConfig
 from parallax_tpu.envs.lunar_lander import LunarLander as JaxLander
 from parallax_tpu.ops import pallas_step
 from parallax_tpu_torch.engine import batched as tb
-from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
 from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
-from parallax_tpu_torch.geometry.shapes import box, circle
 from parallax_tpu_torch.ops import contact_solver, fused_step
 
 torch.set_num_threads(2)
@@ -104,21 +102,27 @@ def test_lander_refuses_the_fused_step_with_broadphase():
 
 
 def test_gate_names_the_roadmap_item_for_unported_lanes():
-    # a box on a static box: a bb group, whose fused lanes are not ported
-    # (circle-box and circle-in-area lanes are)
-    bodies = [
-        BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))], position=(0.0, 0.0)),
-        BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf,
-                inertia=np.inf, position=(0.0, -0.5)),
-    ]
-    world, _ = World.build(bodies, WorldConfig(broadphase=False), device="cpu")
-    assert [g.kernel for g in world.table.groups] == ["bb"]
-    assert not fused_step.supports_fused_step(world)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
-        fused_step.check_fused_step(world)
+    """The gate runs the JAX fused kernel's five kinds: a box on a static
+    box (bb) passes, and its operands carry one bb lane (kind 4, rows lb
+    and ub).  A kind the JAX fused kernel lacks too (a circle on a polygon,
+    cp) raises, naming the split step, as do its operands; JAX's gate
+    refuses it as well and takes its split step quietly."""
+    from torch_scenarios import pair_world
+
+    world, _ = pair_world("bb", broadphase=False)
+    assert fused_step.supports_fused_step(world)
+    fused_step.check_fused_step(world)
+    ops = fused_step.fused_operands(world)
+    assert ops.pair_i.tolist() == [[0, 1, 2, 2, 3, 3, 0, fused_step._KINDS["bb"]]]
+    assert fused_step._lane_count(world) == world.table.n_contacts == 1
+    cp, _ = pair_world("cp", broadphase=False)
+    assert not fused_step.supports_fused_step(cp)
+    with pytest.raises(ValueError, match="split step"):
+        fused_step.check_fused_step(cp)
     # nor do the kernel's operands encode lanes it would misread
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
-        fused_step.fused_operands(world)
+    with pytest.raises(ValueError, match="split step"):
+        fused_step.fused_operands(cp)
+    assert fused_step.FUSED_KERNELS == pallas_step.FUSED_KERNELS
 
 
 def test_fused_operands_match_jax_static_info(fused):

@@ -77,29 +77,37 @@ def test_importing_the_port_leaves_jax_out():
 
 
 def test_unported_kernels_and_modes_raise():
-    from parallax_tpu_torch.engine.batched import _to_soa, physics_core
-    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
-    from parallax_tpu_torch.geometry.shapes import box, circle
+    """Every pair kind of the pair table runs on the batched step, a box on
+    a box (bb) among them; what raises is a kind the fused kernels lack,
+    as the JAX package's do (a circle on a polygon, cp: ValueError naming
+    the split step, under autograd and without), and the per-world solver
+    modes (ROADMAP Queue 1 item 11)."""
+    from torch_scenarios import pair_world
 
-    # a box on a static box: a bb group, not ported (a circle on the box,
-    # a cb group, runs since the billiards slice)
-    bodies = [
-        BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))], position=(0.0, 0.0)),
-        BodyDef(shapes=[box((-1.0, -0.1), (1.0, 0.0))], mass=np.inf,
-                inertia=np.inf, position=(0.0, -0.5)),
-    ]
-    world, st = World.build(bodies, WorldConfig(), device="cpu")
-    s = _to_soa(type(st)(*(x[None] for x in st)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8f"):
-        physics_core(world, s)
-    ball = [BodyDef(shapes=[circle(0.3)], position=(0.0, 0.0))] + bodies[1:]
-    world_cb, _ = World.build(ball, WorldConfig(), device="cpu")
-    assert [g.kernel for g in world_cb.table.groups] == ["cb"]
-    out, con = physics_core(world_cb, s)
-    assert torch.isfinite(out.py).all() and con.active.shape == (1, 1)
-    world_gs, _ = World.build(bodies, WorldConfig(solver_mode="gauss_seidel"), device="cpu")
+    from parallax_tpu_torch.engine.batched import physics_core
+    from parallax_tpu_torch.engine.world import WorldConfig
+    from parallax_tpu_torch.ops import fused_step
+
+    for config in ({}, {"use_cuda_fused": True}):
+        world, s = pair_world("bb", **config)
+        out, con = physics_core(world, s)
+        assert con.active.shape == (1, 1) and con.active.all()
+        assert torch.isfinite(out.py).all() and out.py[0, 0] > s.py[0, 0]  # pushed up
+    world, s = pair_world("cp")
+    out, con = physics_core(world, s)
+    assert con.active.all() and out.py[0, 0] > s.py[0, 0]
+    with pytest.raises(ValueError, match="split step"):
+        pair_world("cp", use_cuda_fused=True)
+    with pytest.raises(ValueError, match="split step"):
+        fused_step.check_fused_step(world)
+    for grad in (False, True):
+        px = s.px.clone().requires_grad_(grad)
+        with pytest.raises(ValueError, match="split step"):
+            fused_step.physics_core_fused(world, s._replace(px=px))
+    world_gs, _ = pair_world("bb", solver_mode="gauss_seidel")
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         physics_core(world_gs, s)
+    assert WorldConfig().solver_mode == "block"
 
 
 @pytest.mark.parametrize("entry", ["LunarLander", "World.build", "convert"])

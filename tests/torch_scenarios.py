@@ -272,3 +272,320 @@ def active_kinds(world, active):
         out[g.kernel] = out.get(g.kernel, 0) + int(active[lane:lane + width].sum())
         lane += width
     return out
+
+
+# ---------------------------------------------------------------------------
+# user-built worlds for step_batched: the crate pile, and the JAX tests'
+# mixed and area worlds.  The body lists take a package's ``BodyDef``,
+# ``box``, ``circle`` and ``polygon`` (the port's and the JAX package's have
+# the same signatures), so that both packages build the same world.
+# ---------------------------------------------------------------------------
+
+# the crate pile's crates: half-width, half-height, mass, and the centre at
+# rest on the floor (crate 1 sits on crate 0, exactly aligned, and crate 7
+# on crate 6), then its centre in the overlap layout below
+_CRATES = (
+    (0.5, 0.5, 2.0, (-3.3, 0.5), (-3.54, 0.46)),
+    (0.5, 0.5, 2.0, (-3.3, 1.5), (-3.54, 1.42)),
+    (0.4, 0.4, 1.5, (-2.0, 0.4), (-2.0, 0.36)),
+    (0.6, 0.4, 3.0, (-0.7, 0.4), (-0.9, 0.36)),
+    (0.3, 0.3, 1.0, (0.4, 0.3), (0.3, 0.26)),
+    (0.45, 0.35, 1.5, (1.4, 0.35), (1.6, 0.31)),
+    (0.55, 0.5, 2.5, (2.8, 0.5), (3.49, 0.46)),
+    (0.35, 0.3, 1.2, (2.8, 1.3), (3.3, 1.22)),
+)
+# the balls: radius, mass, centre at rest (on crates 2, 4 and 5), centre in
+# the overlap layout (ball 0 on crate 2; balls 1 and 2 side by side on crate
+# 3, touching)
+_BALLS = (
+    (0.2, 0.5, (-2.0, 1.0), (-2.0, 0.92)),
+    (0.25, 0.6, (0.4, 0.85), (-1.18, 0.97)),
+    (0.3, 0.8, (1.4, 1.0), (-0.6725, 1.02)),
+)
+N_STATIC = 3  # the floor and the two walls come first
+
+
+def crate_bodies(BodyDef, box, circle, crates=8, balls=3):
+    """The crate pile, a user-built scene of the kind
+    ``tests/test_pallas_solver.py:519`` builds: a static floor box
+    (-4, -0.5)-(4, 0) and wall boxes x in [-4.5, -4] and [4, 4.5], y in
+    [0, 4]; ``crates`` dynamic axis-aligned box crates (half-widths 0.3-0.6,
+    masses 1-3, a box's inertia); ``balls`` balls (radius 0.2-0.3).  All
+    have friction 0.6 and elasticity 0.1.  At 8 crates and 3 balls: 14
+    bodies and parts, pairs 3 cc + 33 cb + 52 bb, C=88 one-lane lanes."""
+    wall = dict(mass=np.inf, inertia=np.inf, friction=0.6, elasticity=0.1)
+    out = [BodyDef(shapes=[box((-4.0, -0.5), (4.0, 0.0))], **wall),
+           BodyDef(shapes=[box((-4.5, 0.0), (-4.0, 4.0))], **wall),
+           BodyDef(shapes=[box((4.0, 0.0), (4.5, 4.0))], **wall)]
+    for hw, hh, m, pos, _ in _CRATES[:crates]:
+        out.append(BodyDef(shapes=[box((-hw, -hh), (hw, hh))], mass=m,
+                           inertia=m * (hw * hw + hh * hh) / 3.0, position=pos,
+                           friction=0.6, elasticity=0.1))
+    for r, m, pos, _ in _BALLS[:balls]:
+        out.append(BodyDef(shapes=[circle(r)], mass=m, inertia=0.5 * m * r * r,
+                           position=pos, friction=0.6, elasticity=0.1))
+    return out
+
+
+def crate_config(WorldConfig, **kw):
+    """BASELINE config 3's solver (``tests/test_solver_stack.py:33``):
+    symplectic, 8 velocity and 3 position iterations, the broadphase on."""
+    return WorldConfig(dt=0.01, gravity=(0.0, -9.8), integrator="symplectic",
+                       solver_iterations=8, position_iterations=3, **kw)
+
+
+def crate_world(device="cuda", fused=False, crates=8, balls=3):
+    """The crate pile as a port world: ``(world, state)``.  The split step
+    runs the solver kernel on the card (``use_cuda_solver``), or with
+    ``fused`` the fused step."""
+    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
+    from parallax_tpu_torch.geometry.shapes import box, circle
+
+    cfg = crate_config(WorldConfig, use_cuda_solver=not fused, use_cuda_fused=fused)
+    return World.build(crate_bodies(BodyDef, box, circle, crates, balls), cfg,
+                       device=device)
+
+
+def crate_overlap_state(world, B, seed=0):
+    """``B`` crate-pile worlds (any crate and ball counts of
+    :func:`crate_bodies`) where every kind of lane fires: crates 0 and 1
+    stacked, aligned, against the left wall and on the floor; crates 2-5 on
+    the floor; crate 6 into the right wall with crate 7 on it; ball 0 on
+    crate 2, balls 1 and 2 side by side on crate 3.  Each touching pair
+    overlaps by about 0.04 and each other pair is at least 0.1 apart, beyond
+    the numpy-seeded jitter (0.003) and velocities (0.05 a component)
+    and one step's motion, so that every active contact is at least 0.01
+    deep when it is collided; and nothing rests in an unstable balance (a
+    ball on a ball rolls off along a path that rounding steers).  Crates 0
+    and 1 share their jitter and velocity in x: they stay exactly aligned
+    (the ties of the bb lane's contact point).  Returns an ``_SoA``."""
+    rng = np.random.default_rng(seed)
+    n, dev = world.n_bodies, world.device
+    crates, balls = _crate_counts(world)
+    lay = np.float32([(0.0, 0.0)] * N_STATIC + [c[4] for c in _CRATES[:crates]]
+                     + [b[3] for b in _BALLS[:balls]])
+    mov = ~np.asarray(world.static_bodies)[:, None]
+    jit = rng.uniform(-0.003, 0.003, (2, n, B)).astype(np.float32)
+    vel = (0.05 * rng.standard_normal((3, n, B))).astype(np.float32)
+    jit[0, N_STATIC + 1] = jit[0, N_STATIC]
+    vel[0, N_STATIC + 1] = vel[0, N_STATIC]
+    x = np.where(mov, lay[:, 0:1] + jit[0], 0.0)
+    y = np.where(mov, lay[:, 1:2] + jit[1], 0.0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    return tb._SoA(px=t(x), py=t(y), vx=t(np.where(mov, vel[0], 0.0)),
+                   vy=t(np.where(mov, vel[1], 0.0)), angle=t(np.zeros((n, B))),
+                   omega=t(np.where(mov, vel[2], 0.0)))
+
+
+def _crate_counts(world):
+    """The crates and balls of a crate-pile world."""
+    from parallax_tpu_torch.geometry.shapes import CIRCLE
+
+    balls = sum(k == CIRCLE for k in world.parts.kind)
+    return world.n_bodies - N_STATIC - balls, balls
+
+
+def bb_tie_case(world, device="cpu"):
+    """Exact ties of the bb lane, on the crate pile at B=1: crate 1 sits on
+    crate 0 (0.02 deep), the two exactly aligned, so the contact point's
+    ``min(uax, ubx)`` and ``max(lax, lbx)`` tie; crate 4 (a square) comes
+    down and left onto a corner of crate 2 (a square), overlapping it by 0.05
+    in x and in y, so that ``d0 == d2`` and the nested minimum of the four
+    overlaps ties.  Both moving crates approach at 0.2 a component, the
+    others float apart; every body's velocity is what it leaves the
+    integration with as wanted (``vy`` starts ``-g dt`` higher), so the
+    ties hold after it.  Returns ``(s, cotangents)``."""
+    cfg = world.config
+    gdt = np.float32(cfg.gravity[1] * cfg.dt)
+    n = world.n_bodies
+    x = np.zeros(n, np.float32)
+    y = np.zeros(n, np.float32)
+    vx = np.zeros(n, np.float32)
+    vy = np.zeros(n, np.float32)  # after gravity
+    c = N_STATIC
+    x[c], y[c] = -3.0, 1.0  # crate 0, floating
+    x[c + 1], y[c + 1], vy[c + 1] = -3.0, 1.98, -0.2  # crate 1 on it
+    x[c + 2] = y[c + 2] = 1.0  # crate 2, a 0.4 square
+    x[c + 4] = y[c + 4] = 1.65  # crate 4, a 0.3 square, on its corner
+    vx[c + 4] = vy[c + 4] = -0.2
+    for k, i in enumerate((c + 3, c + 5, c + 6, c + 7, *range(c + 8, n))):
+        x[i], y[i] = -3.9 + 1.3 * k, 6.0  # the others apart, above the walls
+    mov = ~np.asarray(world.static_bodies)
+    vy0 = np.where(mov, vy - gdt, 0.0).astype(np.float32)
+    assert ((vy0 + gdt)[mov] == vy[mov]).all()
+
+    def col(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)[:, None]).to(device)
+
+    zero = np.zeros(n, np.float32)
+    s = tb._SoA(px=col(x), py=col(y), vx=col(vx), vy=col(vy0), angle=col(zero),
+                omega=col(zero))
+    return s, cotangents(n, 1, device=device)
+
+
+def crate_height_loss(world, s, steps, segments=0):
+    """A state objective on the crate pile: the crates' mean height after
+    ``steps`` of ``step_batched`` from the ``_SoA`` ``s``, each of
+    ``segments`` equal segments under ``torch.utils.checkpoint`` as the
+    train path runs them (0: none).  Returns ``(loss, final _SoA)``."""
+    from torch.utils.checkpoint import checkpoint
+
+    def run(px, py, vx, vy, angle, omega, k):
+        state = tb._from_soa(tb._SoA(px, py, vx, vy, angle, omega))
+        for _ in range(k):
+            state, _ = tb.step_batched(world, state)
+        return tuple(tb._to_soa(state))
+
+    planes = tuple(s)
+    if segments:
+        for _ in range(segments):
+            planes = checkpoint(run, *planes, steps // segments, use_reentrant=False)
+    else:
+        planes = run(*planes, steps)
+    out = tb._SoA(*planes)
+    crates, _ = _crate_counts(world)
+    return out.py[N_STATIC:N_STATIC + crates].mean(), out
+
+
+def crate_kick_loss(world, s, u, steps, segments=0):
+    """:func:`crate_height_loss` after the same kick ``u`` (a ``[2]``
+    tensor) to every movable body's initial velocity: a state objective
+    with one parameter shared by the fleet, as a policy's are.  Its
+    gradient sums over the worlds, so it stays well-conditioned where a
+    world's own gradient is not: at rest, contacts sit at the kinks of the
+    solve (an approach velocity near 0, a friction impulse near its cone),
+    and there a world's gradient wrt its own velocities moves by 1e-2
+    relative under a one-ulp change of the state.  Returns ``(loss, final
+    _SoA)``."""
+    mov = ~torch.tensor(world.static_bodies, device=s.vx.device)[:, None]
+    return crate_height_loss(world, s._replace(vx=s.vx + u[0] * mov, vy=s.vy + u[1] * mov),
+                             steps, segments)
+
+
+def _tri(polygon):
+    return polygon([(-0.2, -0.2), (0.2, -0.2), (0.0, 0.3)])
+
+
+def _area_contained(BodyDef, box, circle, polygon):
+    """The three contained bodies of ``tests/test_area_containment.py:106``."""
+    return [
+        BodyDef(shapes=[_tri(polygon)], mass=1.0, inertia=0.1, position=(0.3, 0.1),
+                velocity=(2.0, 0.5)),
+        BodyDef(shapes=[box((-0.2, -0.15), (0.2, 0.15))], mass=0.8, inertia=0.08,
+                position=(-0.4, 0.2), velocity=(-1.5, 1.0)),
+        BodyDef(shapes=[circle(0.15)], mass=0.5, inertia=0.04, position=(0.0, -0.3),
+                velocity=(1.0, -2.0)),
+    ]
+
+
+# the JAX tests' worlds with the pair kinds the fused kernels do not run:
+# body list, WorldConfig arguments, the scales of the numpy-seeded
+# perturbations of the movable bodies' position, velocity, angle and
+# angular velocity (the JAX tests' own), and the movable bodies' positions
+# in the odd worlds, piled onto each other (and the mixed world's onto its
+# floor) so that the kinds that rarely meet under the JAX tests'
+# perturbations (bp, cp, cb) fire too
+KIND_WORLDS = {
+    # tests/test_batched_engine.py:21: pp, cp, bp, cc and cb groups
+    "mixed": (
+        lambda BodyDef, box, circle, polygon: [
+            BodyDef(shapes=[polygon([(-0.5, -0.5), (0.5, -0.5), (0.5, 0.5), (-0.5, 0.5)])],
+                    mass=1.0, inertia=0.2, position=(0.0, 2.0), angle=0.2,
+                    elasticity=0.3, friction=0.5),
+            BodyDef(shapes=[polygon([(-0.4, -0.3), (0.5, -0.2), (0.0, 0.5)])], mass=1.5,
+                    inertia=0.3, position=(0.4, 3.0), angle=-0.4, elasticity=0.2,
+                    friction=0.4),
+            BodyDef(shapes=[circle(0.3)], mass=0.8, inertia=0.05, position=(-0.5, 4.0),
+                    elasticity=0.6, friction=0.3),
+            BodyDef(shapes=[circle(0.25)], mass=0.5, inertia=0.04, position=(0.6, 4.5),
+                    elasticity=0.9, friction=0.2),
+            BodyDef(shapes=[box((-6.0, -2.0), (6.0, 0.0))], mass=np.inf, inertia=np.inf,
+                    elasticity=0.1, friction=0.6),
+            BodyDef(shapes=[polygon([(-6.0, 0.0), (-5.0, 0.0), (-5.0, 4.0), (-6.0, 4.0)])],
+                    mass=np.inf, inertia=np.inf, elasticity=0.1, friction=0.6),
+        ],
+        dict(dt=0.01, gravity=(0.0, -9.8), integrator="symplectic", solver_iterations=8),
+        (0.3, 1.0, 0.3, 1.0),
+        ((0.0, 0.45), (1.1, 0.35), (-1.2, 0.25), (-0.7, 0.45)),
+    ),
+    # tests/test_area_containment.py:103: area_pb, area_bb, area_cb (and bp,
+    # cp, cb between the contained bodies)
+    "box_area": (
+        lambda BodyDef, box, circle, polygon: _area_contained(BodyDef, box, circle, polygon) + [
+            BodyDef(shapes=[box((-1.5, -1.0), (1.5, 1.0))], mass=np.inf, inertia=np.inf,
+                    is_area=True)],
+        dict(dt=0.01, gravity=(0.0, 0.0)),
+        (0.8, 2.0, 0.0, 0.0),
+        ((0.3, 0.1), (0.0, 0.15), (0.1, 0.0)),
+    ),
+    # tests/test_area_containment.py:145: area_cp, area_pp, area_bp
+    "hex_area": (
+        lambda BodyDef, box, circle, polygon: _area_contained(BodyDef, box, circle, polygon) + [
+            BodyDef(shapes=[polygon([(2.0, 0.0), (1.0, 1.7), (-1.0, 1.7), (-2.0, 0.0),
+                                     (-1.0, -1.7), (1.0, -1.7)])],
+                    mass=np.inf, inertia=np.inf, is_area=True)],
+        dict(dt=0.01, gravity=(0.0, 0.0)),
+        (1.3, 2.0, 0.0, 0.0),
+        ((0.3, 0.1), (0.0, 0.15), (0.1, 0.0)),
+    ),
+}
+
+
+def kinds_world(name, device="cuda", **config):
+    """A world of :data:`KIND_WORLDS` in the port: ``(world, state)``, its
+    WorldConfig updated by ``config`` (``use_cuda_solver=True`` runs the
+    split step's solver kernel on the card)."""
+    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
+    from parallax_tpu_torch.geometry.shapes import box, circle, polygon
+
+    bodies, cfg, *_ = KIND_WORLDS[name]
+    return World.build(bodies(BodyDef, box, circle, polygon), WorldConfig(**cfg, **config),
+                       device=device)
+
+
+def kinds_state(name, world, state, B, seed=0, pile=True):
+    """``B`` copies of the world's ``[n, ...]`` state, every movable body
+    perturbed by numpy-seeded normal noise at the scales of
+    :data:`KIND_WORLDS`; with ``pile``, in every odd world the movable
+    bodies sit at its pile instead, their positions perturbed at a tenth of
+    the scale.  Returns an ``_SoA``."""
+    rng = np.random.default_rng(seed)
+    n, dev = world.n_bodies, world.device
+    _, _, (sp, sv, sa, sw), layout = KIND_WORLDS[name]
+    mov = ~np.asarray(world.static_bodies)[:, None]
+    noise = rng.standard_normal((6, n, B)).astype(np.float32)
+    base = np.stack([state.pos[:, 0].cpu().numpy(), state.pos[:, 1].cpu().numpy(),
+                     state.vel[:, 0].cpu().numpy(), state.vel[:, 1].cpu().numpy(),
+                     state.angle.cpu().numpy(), state.omega.cpu().numpy()])
+    base = np.repeat(base[:, :, None], B, axis=2)
+    if pile:
+        base[:2, :len(layout), 1::2] = np.float32(layout).T[:, :, None]
+        noise[:2, :, 1::2] *= np.float32(0.1)
+
+    def t(k, scale):
+        x = base[k] + np.where(mov, noise[k] * np.float32(scale), 0.0)
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    return tb._SoA(px=t(0, sp), py=t(1, sp), vx=t(2, sv), vy=t(3, sv), angle=t(4, sa),
+                   omega=t(5, sw))
+
+
+def pair_world(kind, device="cpu", **config):
+    """A one-pair world at B=1, its two bodies 0.05 deep in each other:
+    ``"bb"`` a box crate on a static box, ``"cp"`` a circle on a static
+    polygon (a kind no fused kernel runs, in the JAX package either).
+    ``config`` goes to ``WorldConfig``.  Returns ``(world, s)``."""
+    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
+    from parallax_tpu_torch.geometry.shapes import box, circle, polygon
+
+    crate = (BodyDef(shapes=[box((-0.3, -0.3), (0.3, 0.3))], position=(0.0, -0.25)) if kind == "bb"
+             else BodyDef(shapes=[circle(0.3)], position=(0.0, -0.25)))
+    ground = (box((-1.0, -0.1), (1.0, 0.0)) if kind == "bb"
+              else polygon([(-1.0, -0.1), (1.0, -0.1), (1.0, 0.0), (-1.0, 0.0)]))
+    bodies = [crate, BodyDef(shapes=[ground], mass=np.inf, inertia=np.inf, position=(0.0, -0.5))]
+    world, st = World.build(bodies, WorldConfig(**config), device=device)
+    assert [g.kernel for g in world.table.groups] == [kind]
+    return world, tb._to_soa(type(st)(*(x[None] for x in st)))

@@ -110,7 +110,13 @@ def load(lib: Path, double: bool) -> None:
 
 
 def to64(world) -> None:
-    """The world's kernel operands in float64."""
+    """The world's kernel operands in float64, and what the plain version
+    reads beside the planes: its gravity mask, and the bodies' masses and
+    inertias as float64 tensors whose inverses are the kernel's float32
+    ones.  Left in float32, the plain step would round its gravity
+    increment and sums such as ``im_a + im_b`` to float32 where the kernel
+    works in float64.  The friction and elasticity stay float32: the plain
+    step and the kernel's operands both mix them in float32."""
     from parallax_tpu_torch.ops import contact_solver, fused_step
 
     ops = (fused_step.fused_operands(world),
@@ -118,12 +124,17 @@ def to64(world) -> None:
     for k, v in list(world.cache.items()):
         if any(v is o for o in ops):
             world.cache[k] = type(v)(*(x.double() if x.dtype == torch.float32 else x for x in v))
+    p = world.params
+    world.params = p._replace(mass=1.0 / p.inv_mass.double(),
+                              inertia=1.0 / p.inv_inertia.double())
+    world.cache[("gravity_mask",)] = torch.isfinite(world.params.mass).double()[:, None]
 
 
 def scenarios(B: int):
     """``(label, world, state, cotangents)`` of the scenarios checked."""
-    from torch_scenarios import (area_tie_case, billiards_pairs_state, cb_tie_case, cotangents,
-                                 mixed_state, mixed_world, overlap_state, robocup_overlap_state)
+    from torch_scenarios import (area_tie_case, bb_tie_case, billiards_pairs_state, cb_tie_case,
+                                 cotangents, crate_overlap_state, crate_world, mixed_state,
+                                 mixed_world, overlap_state, robocup_overlap_state)
 
     from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
     from parallax_tpu_torch.envs.robocup import RoboCup, RoboCupConfig
@@ -131,14 +142,18 @@ def scenarios(B: int):
     rc = RoboCup(RoboCupConfig(use_cuda_fused=True), device="cpu")
     bl = Billiards(BilliardsConfig(use_cuda_fused=True), device="cpu")
     mw, ms = mixed_world("cpu")
+    cw, _ = crate_world("cpu", fused=True)
     out = [("RoboCup overlap", rc.world, robocup_overlap_state(rc, B)),
            ("billiards8 pairs", bl.world, billiards_pairs_state(bl, B)),
            ("billiards8 pile", bl.world, overlap_state(bl, B, 3, 1.0, 0.03, 0.02)),
-           ("mixed cc+cb+pp", mw, mixed_state(mw, ms, B))]
+           ("mixed cc+cb+pp", mw, mixed_state(mw, ms, B)),
+           ("crate pile", cw, crate_overlap_state(cw, B))]
     out = [(label, w, s, cotangents(w.n_bodies, B, 5)) for label, w, s in out]
     for env, case in ((bl, cb_tie_case), (rc, area_tie_case)):
         s, cot = case(env)
         out.append((f"{case.__name__} (B=1)", env.world, s, cot))
+    s, cot = bb_tie_case(cw)
+    out.append(("bb_tie_case (B=1)", cw, s, cot))
     return out
 
 
