@@ -42,6 +42,13 @@ the card agrees with the same run on the CPU:
   and the gradient of ``crate_kick_loss`` through 100 steps (the reverse
   kernels); and the JAX tests' mixed and area worlds on the split step.
 
+The two reverse passes run one warp per world, several worlds a block
+(``contact_solver.BWD_WORLDS_PER_BLOCK``); phase 3 holds them to the bit
+across two launches and across plans of 2, 4 and 8 worlds a block, times
+each plan on the crate pile, and holds them to their plain VJPs on a
+ragged batch (B - 1 worlds) and, for the solver's, on billiards48 (52
+bodies, more than a warp's threads; 1,320 lanes).
+
 It prints the card's name and power limit, the timings, one JSON line of
 per-kernel results and, last, one JSON line ``{"ok": true, "device":
 ...}``.  Any failed phase raises and the script exits non-zero; without a
@@ -1102,6 +1109,119 @@ def crate_kernels(gpu):
     return out
 
 
+PLANS = (2, 4, 8)  # worlds a block the reverse passes are timed at
+B48 = 256  # billiards48's batch in phase 3
+
+
+def reverse_plans(gpu):
+    """Phase 3 for the two reverse passes' launch plan (one warp per world,
+    ``contact_solver.BWD_WORLDS_PER_BLOCK`` worlds a block): on the crate
+    pile at B, two launches on the same inputs equal to the bit, and each
+    plan of PLANS giving the same bits, timed in turns; at B - 1 worlds (a
+    ragged last block) both against their plain VJPs at the bar; and the
+    solver reverse pass on billiards48 at B48 (52 bodies, more than a warp's
+    threads, and C=1320 lanes): its pairs state at the bar, its overlap pile
+    (lanes at kinks, where two float32 VJPs differ) as a float64 reading.
+    Returns ``{kernel: results}``."""
+    from parallax_tpu_torch.engine.batched import collide_batched, integrate_bm
+    from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from torch_scenarios import (billiards_pairs_state, cotangents, crate_overlap_state,
+                                 crate_world, overlap_state)
+
+    dev = torch.device("cuda")
+    wf, _ = crate_world("cuda", fused=True)
+    ws, _ = crate_world("cuda")
+    c = ws.config
+    args = (c.solver_iterations, c.position_iterations, c.dt, c.contact)
+
+    def calls(batch):
+        s = crate_overlap_state(wf, batch)
+        cot = cotangents(wf.n_bodies, batch, 5, dev)
+        si, _ = integrate_bm(ws, s)
+        con = collide_batched(ws, si)
+
+        def solve():
+            g = contact_solver.solve_contacts_bwd(ws, si, con, cot, *args)
+            return (*g[0], *g[1:])
+
+        def solve_plain():
+            g = contact_solver.solve_contacts_bwd_plain(ws, si, con, cot, *args)
+            return (*g[0], *g[1:])
+
+        def fused():
+            g = fused_step.fused_step_bwd(wf, s, None, cot)
+            return (*g[0], *g[1:])
+
+        def fused_plain():
+            g = fused_step.fused_step_bwd_plain(wf, s, None, cot)
+            return (*g[0], *g[1:])
+
+        return {"contact_solve_bwd": (solve, solve_plain), "fused_step_bwd": (fused, fused_plain)}
+
+    out = {}
+    default = contact_solver.BWD_WORLDS_PER_BLOCK
+    for name, (fn, _) in calls(B).items():
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"{name}: two launches on the same inputs differ")
+        plans = {}
+        for w in PLANS:
+            contact_solver.BWD_WORLDS_PER_BLOCK = w
+            got = fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(first, got)),
+                  f"{name}: {w} worlds a block change the bits")
+            cuda_ms(fn, 2)
+            plans[w] = min(cuda_ms(fn, 5) for _ in range(2))
+        contact_solver.BWD_WORLDS_PER_BLOCK = default
+        print(f"[kernel] {name} on the crate pile at B={B}: two launches equal to the bit, and "
+              f"so are the plans of {list(PLANS)} worlds a block (default {default})")
+        print(f"[time] {name} per call on the crate pile at B={B} by worlds a block: "
+              + ", ".join(f"{w}: {ms:.4f} ms" for w, ms in plans.items()) + f" on {gpu}")
+        out[name] = {"worlds_per_block": default, "plans_ms": plans}
+        del first, again, got
+    for name, (fn, plain) in calls(B - 1).items():
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err, share = hold_vjp(f"{name} at B={B - 1}", got, want)
+        print(f"[kernel] {name} vs plain VJP on the crate pile at B={B - 1} (a ragged last "
+              f"block): max |diff| {err:.3e}, {share:.3f} of the bar")
+        out[name]["ragged_max_abs_err"] = err
+
+    env = Billiards(BilliardsConfig(n_object=47))
+    w, c = env.world, env.world.config
+    b_args = (c.solver_iterations, c.position_iterations, c.dt, c.contact)
+    cot = cotangents(w.n_bodies, B48, 5, dev)
+    for label, s in (("pairs", billiards_pairs_state(env, B48)),
+                     ("pile", overlap_state(env, B48, 3, *CIRCLE_OVERLAP["billiards48"]))):
+        con = collide_batched(w, s)
+        got = contact_solver.solve_contacts_bwd(w, s, con, cot, *b_args)
+        want = contact_solver.solve_contacts_bwd_plain(w, s, con, cot, *b_args)
+        torch.cuda.synchronize()
+        barred = label == "pairs"
+        err, share = hold_vjp(f"contact_solve_bwd on billiards48's {label} state",
+                              (*got[0], *got[1:]), (*want[0], *want[1:]), barred)
+
+        def d64(x):
+            return x.double() if x.is_floating_point() else x
+
+        want64 = contact_solver.solve_contacts_bwd_plain(
+            w, type(s)(*map(d64, s)), type(con)(*map(d64, con)), type(cot)(*map(d64, cot)),
+            *b_args)
+        off = float64_reading((*got[0], *got[1:]), (*want[0], *want[1:]),
+                              (*want64[0], *want64[1:]))
+        print(f"[kernel] contact_solve_bwd vs plain VJP on billiards48's {label} state at "
+              f"B={B48} ({w.n_bodies} bodies, C={w.table.n_contacts}, {int(con.active.sum())} "
+              f"active lanes): max |diff| {err:.3e}, {share:.3f} of the bar"
+              f"{'' if barred else ' (a reading, no bar)'}; worlds off the float64 VJP by more "
+              f"than 1e-3: kernel {off[0]}, plain float32 {off[1]}")
+        out["contact_solve_bwd"][f"billiards48_{label}"] = {
+            "max_abs_err": err, "share_of_bar": share, "off_float64": off}
+    return out
+
+
 def crate_card_vs_cpu():
     """Phases 4 and 6 on the user-built worlds, B=SMALL_B: ``step_batched``
     on the crate pile from ``crate_overlap_state``, split and fused on the
@@ -1482,6 +1602,8 @@ def main():
     rc = robocup_kernels(env_b, gpu)
     lap("phase 3 on the crate pile starts")
     crates = crate_kernels(gpu)
+    lap("phase 3 on the reverse passes' launch plan starts")
+    plans = reverse_plans(gpu)
 
     lap("phase 4 starts")
     # -- phase 4: the rollout path ---------------------------------------------------
@@ -1746,6 +1868,7 @@ def main():
             "crates": {"launches": crate_grad["split"][1][1], **crates["crates"]["solve_bwd"]},
             # a reading on random drops: no bar (see crate_kernels)
             "mixed": crates["mixed"]["solve_bwd"],
+            **plans["contact_solve_bwd"],
         },
         {
             "name": "fused_step_fwd",
@@ -1796,6 +1919,7 @@ def main():
             "robocup": {"launches": rc_train["robocup fused"][1][3], **rc["bwd"]},
             "billiards8": {"launches": rc_train["billiards8 fused cue objective"][1][3], **rc["bwd_billiards8"]},
             "crates": {"launches": crate_grad["fused"][1][3], **crates["bwd"]},
+            **plans["fused_step_bwd"],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

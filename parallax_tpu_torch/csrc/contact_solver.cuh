@@ -1,11 +1,14 @@
-// Device code shared by the contact solve (contact_solver.cu), its
-// reverse pass (contact_solver_bwd.cu) and the fused step (fused_step.cu):
-// the solver's per-world state and passes, one CUDA thread per world.
+// Device code shared by the contact solve (contact_solver.cu) and the
+// fused step (fused_step.cu): the solver's per-world state and passes, one
+// CUDA thread per world.  The reverse passes share its lane fields,
+// constants and NaN-propagating helpers; their warp walk
+// (contact_solver_bwd.cuh) repeats these passes' arithmetic lane for lane
+// on a warp.
 //
 // Everything here computes what engine/batched.py:solve_contacts_bm
 // followed by apply_joints_bm compute, lane for lane, and rounds each
 // product and sum on its own (the files are built with --fmad=false and
-// without fast math), so the reverse pass's recomputed forward is the
+// without fast math), so the reverse passes' recomputed forward is the
 // forward kernel's to the bit.
 
 #pragma once

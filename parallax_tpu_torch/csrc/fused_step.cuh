@@ -1,11 +1,13 @@
 // Device code shared by the fused step (fused_step.cu) and its reverse pass
-// (fused_step_bwd.cu), one CUDA thread per world: integration and gravity,
-// the world-frame vertices, each polygon pair's SAT and reference-face clip,
-// and each circle-circle, circle-box, box-box and circle-in-area-box pair's
-// analytic lane.  The reverse pass recomputes the step with exactly this
-// code, so its decisions (the SAT's best axis, sign, reference edge, clip
-// cuts and kept points; an analytic lane's branches) are the forward
-// kernel's to the bit.
+// (fused_step_bwd.cu): integration and gravity of a body, the world-frame
+// vertices of a part, and a pair's lanes (a polygon pair's SAT and
+// reference-face clip; a circle-circle, circle-box, box-box or
+// circle-in-area-box pair's analytic lane), each for one thread.  The
+// forward walks them over a world on one thread (integrate_world,
+// world_vertices, pair_geometry); the reverse pass spreads them over a
+// warp and recomputes the step with exactly this code, so its decisions
+// (the SAT's best axis, sign, reference edge, clip cuts and kept points;
+// an analytic lane's branches) are the forward kernel's to the bit.
 // See fused_step.cu for what it computes and the rules it follows.
 
 #pragma once
@@ -379,6 +381,33 @@ struct BbLane {
   }
 };
 
+// integration and gravity of body i of world b (k = i * B + b): its new
+// x, y, vx, vy, angle and omega into out
+__device__ void integrate_body(const StepArgs& st, size_t k, bool movable,
+                               float dt, float* out) {
+  float x = st.px[k], y = st.py[k], a = st.ang[k];
+  float vx = st.vx[k], vy = st.vy[k];
+  const float w = st.om[k];
+  const float mov = movable ? 1.0f : 0.0f;
+  if (st.symplectic) {
+    vx = vx + st.gdx * mov;
+    vy = vy + st.gdy * mov;
+  }
+  x = x + vx * dt;
+  y = y + vy * dt;
+  a = a + w * dt;
+  if (!st.symplectic) {
+    vx = vx + st.gdx * mov;
+    vy = vy + st.gdy * mov;
+  }
+  out[0] = x;
+  out[1] = y;
+  out[2] = vx;
+  out[3] = vy;
+  out[4] = a;
+  out[5] = w;
+}
+
 // integration and gravity of world b's bodies, written to the planes
 // args.o*; the poses stay in qx, qy and the cosine and sine of the angle,
 // for the vertices
@@ -387,31 +416,50 @@ __device__ void integrate_world(const Args& args, const StepArgs& st, int b,
   const size_t B = args.B;
   for (int i = 0; i < args.n; ++i) {
     const size_t k = i * B + b;
-    float x = st.px[k], y = st.py[k], a = st.ang[k];
-    float vx = st.vx[k], vy = st.vy[k];
-    const float w = st.om[k];
-    const float mov = args.movable[i] ? 1.0f : 0.0f;
-    if (st.symplectic) {
-      vx = vx + st.gdx * mov;
-      vy = vy + st.gdy * mov;
+    float o[6];
+    integrate_body(st, k, args.movable[i] != 0, args.dt, o);
+    args.opx[k] = o[0];
+    args.opy[k] = o[1];
+    args.ovx[k] = o[2];
+    args.ovy[k] = o[3];
+    args.oang[k] = o[4];
+    args.oom[k] = o[5];
+    qx[i] = o[0];
+    qy[i] = o[1];
+    qc[i] = cosf(o[4]);
+    qs[i] = sinf(o[4]);
+  }
+}
+
+// world-frame vertices of part p into px, py [MAX_V]
+__device__ void part_vertices(const StepArgs& st, size_t B, int b, int p,
+                              const float* qx, const float* qy,
+                              const float* qc, const float* qs, float* px,
+                              float* py) {
+  const int32_t* pi = st.part_i + p * PART_COLS;
+  const int nv = pi[P_NV];
+  if ((st.override_bits >> p) & 1) {
+    // the k-th overridden part, k its rank among them (sorted(override))
+    const int k = __popc(st.override_bits & ((1u << p) - 1u));
+    const size_t row = (size_t)k * st.V;
+    for (int v = 0; v < nv; ++v) {
+      px[v] = st.tx[(row + v) * B + b];
+      py[v] = st.ty[(row + v) * B + b];
     }
-    x = x + vx * args.dt;
-    y = y + vy * args.dt;
-    a = a + w * args.dt;
-    if (!st.symplectic) {
-      vx = vx + st.gdx * mov;
-      vy = vy + st.gdy * mov;
+    return;
+  }
+  const int body = pi[P_BODY];
+  const float c = qc[body], s = qs[body], x = qx[body], y = qy[body];
+  const float* lv = st.part_lv + (size_t)p * st.V * 2;
+  for (int v = 0; v < nv; ++v) {
+    const float lx = lv[2 * v], ly = lv[2 * v + 1];
+    if (pi[P_ROTATE]) {
+      px[v] = c * lx - s * ly + x;
+      py[v] = s * lx + c * ly + y;
+    } else {
+      px[v] = lx + x;
+      py[v] = ly + y;
     }
-    args.opx[k] = x;
-    args.opy[k] = y;
-    args.ovx[k] = vx;
-    args.ovy[k] = vy;
-    args.oang[k] = a;
-    args.oom[k] = w;
-    qx[i] = x;
-    qy[i] = y;
-    qc[i] = cosf(a);
-    qs[i] = sinf(a);
   }
 }
 
@@ -421,103 +469,75 @@ __device__ void world_vertices(const StepArgs& st, size_t B, int b,
                                const float* qc, const float* qs, float* wx,
                                float* wy) {
   for (int p = 0; p < st.P; ++p) {
-    const int32_t* pi = st.part_i + p * PART_COLS;
-    const int nv = pi[P_NV];
-    float* px = wx + p * MAX_V;
-    float* py = wy + p * MAX_V;
-    if ((st.override_bits >> p) & 1) {
-      // the k-th overridden part, k its rank among them (sorted(override))
-      const int k = __popc(st.override_bits & ((1u << p) - 1u));
-      const size_t row = (size_t)k * st.V;
-      for (int v = 0; v < nv; ++v) {
-        px[v] = st.tx[(row + v) * B + b];
-        py[v] = st.ty[(row + v) * B + b];
-      }
-      continue;
-    }
-    const int body = pi[P_BODY];
-    const float c = qc[body], s = qs[body], x = qx[body], y = qy[body];
-    const float* lv = st.part_lv + (size_t)p * st.V * 2;
-    for (int v = 0; v < nv; ++v) {
-      const float lx = lv[2 * v], ly = lv[2 * v + 1];
-      if (pi[P_ROTATE]) {
-        px[v] = c * lx - s * ly + x;
-        py[v] = s * lx + c * ly + y;
-      } else {
-        px[v] = lx + x;
-        py[v] = ly + y;
-      }
-    }
+    part_vertices(st, B, b, p, qx, qy, qc, qs, wx + p * MAX_V, wy + p * MAX_V);
   }
 }
 
-// one analytic lane into st.geo and st.active at offset i0
-__device__ void write_lane(const StepArgs& st, size_t plane, size_t i0,
-                           const Lane& l) {
-  st.geo[i0] = l.pen_x;
-  st.geo[plane + i0] = l.pen_y;
-  st.geo[2 * plane + i0] = l.pt_x;
-  st.geo[3 * plane + i0] = l.pt_y;
-  st.active[i0] = l.active;
+// pair q's lanes, by its kind: a polygon pair's two (point-minor), a circle
+// pair's one, into out; returns how many.  A circle's centre is its row 0,
+// a box's lb and ub its rows 0 and 1.  A kind this code does not name
+// gives none (the host never sends one).
+__device__ int pair_lanes(const StepArgs& st, int q, const float* wx,
+                          const float* wy, Lane* out) {
+  const int32_t* qi = st.pair_i + q * PAIR_COLS;
+  const int pa = qi[Q_A] * MAX_V, pb = qi[Q_B] * MAX_V;
+  const float ra = st.pair_f[2 * q], rb = st.pair_f[2 * q + 1];
+  switch (qi[Q_KIND]) {
+    case K_PP: {
+      PairSat s;
+      s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
+            qi[Q_VB], qi[Q_MASK_B]);
+      out[0] = {s.n_x * s.ld0 * (s.a0 ? 1.0f : 0.0f),
+                s.n_y * s.ld0 * (s.a0 ? 1.0f : 0.0f), s.c0x, s.c0y, s.a0};
+      out[1] = {s.n_x * s.ld1 * (s.a1 ? 1.0f : 0.0f),
+                s.n_y * s.ld1 * (s.a1 ? 1.0f : 0.0f), s.c1x, s.c1y, s.a1};
+      return 2;
+    }
+    case K_CC: {
+      CcLane l;
+      l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], rb);
+      out[0] = l.out;
+      return 1;
+    }
+    case K_CB: {
+      CbLane l;
+      l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
+      out[0] = l.out;
+      return 1;
+    }
+    case K_AREA_CB: {
+      AreaCbLane l;
+      l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
+      out[0] = l.out;
+      return 1;
+    }
+    case K_BB: {
+      BbLane l;
+      l.run(wx[pa], wy[pa], wx[pa + 1], wy[pa + 1], wx[pb], wy[pb],
+            wx[pb + 1], wy[pb + 1]);
+      out[0] = l.out;
+      return 1;
+    }
+    default:
+      return 0;
+  }
 }
 
-// every pair's lanes into st.geo and st.active, from its first lane on, by
-// its kind: a polygon pair's two (point-minor), a circle pair's one.  A
-// circle's centre is its row 0, a box's lb and ub its rows 0 and 1.  A kind
-// this code does not name writes nothing (the host never sends one).
+// every pair's lanes into st.geo and st.active, from its first lane on
 __device__ void pair_geometry(const StepArgs& st, int C, size_t B, int b,
                               const float* wx, const float* wy) {
   const size_t plane = (size_t)C * B;
   for (int q = 0; q < st.npairs; ++q) {
-    const int32_t* qi = st.pair_i + q * PAIR_COLS;
-    const int pa = qi[Q_A] * MAX_V, pb = qi[Q_B] * MAX_V;
-    const size_t i0 = (size_t)qi[Q_LANE] * B + b;
-    const float ra = st.pair_f[2 * q], rb = st.pair_f[2 * q + 1];
-    switch (qi[Q_KIND]) {
-      case K_PP: {
-        PairSat s;
-        s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
-              qi[Q_VB], qi[Q_MASK_B]);
-        const size_t i1 = i0 + B;
-        st.geo[i0] = s.n_x * s.ld0 * (s.a0 ? 1.0f : 0.0f);
-        st.geo[i1] = s.n_x * s.ld1 * (s.a1 ? 1.0f : 0.0f);
-        st.geo[plane + i0] = s.n_y * s.ld0 * (s.a0 ? 1.0f : 0.0f);
-        st.geo[plane + i1] = s.n_y * s.ld1 * (s.a1 ? 1.0f : 0.0f);
-        st.geo[2 * plane + i0] = s.c0x;
-        st.geo[2 * plane + i1] = s.c1x;
-        st.geo[3 * plane + i0] = s.c0y;
-        st.geo[3 * plane + i1] = s.c1y;
-        st.active[i0] = s.a0;
-        st.active[i1] = s.a1;
-        break;
-      }
-      case K_CC: {
-        CcLane l;
-        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], rb);
-        write_lane(st, plane, i0, l.out);
-        break;
-      }
-      case K_CB: {
-        CbLane l;
-        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
-        write_lane(st, plane, i0, l.out);
-        break;
-      }
-      case K_AREA_CB: {
-        AreaCbLane l;
-        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
-        write_lane(st, plane, i0, l.out);
-        break;
-      }
-      case K_BB: {
-        BbLane l;
-        l.run(wx[pa], wy[pa], wx[pa + 1], wy[pa + 1], wx[pb], wy[pb],
-              wx[pb + 1], wy[pb + 1]);
-        write_lane(st, plane, i0, l.out);
-        break;
-      }
-      default:
-        break;
+    Lane l[2];
+    const int k = pair_lanes(st, q, wx, wy, l);
+    const size_t i0 = (size_t)st.pair_i[q * PAIR_COLS + Q_LANE] * B + b;
+    for (int j = 0; j < k; ++j) {
+      const size_t i = i0 + j * B;
+      st.geo[i] = l[j].pen_x;
+      st.geo[plane + i] = l[j].pen_y;
+      st.geo[2 * plane + i] = l[j].pt_x;
+      st.geo[3 * plane + i] = l[j].pt_y;
+      st.active[i] = l[j].active;
     }
   }
 }

@@ -1,4 +1,4 @@
-// Reverse pass of the fused physics step, one CUDA thread per world.
+// Reverse pass of the fused physics step, one warp per world.
 //
 // Replaces parallax_tpu/ops/pallas_step.py:_step_bwd_kernel (l.495) on
 // NVIDIA Hopper (sm_90a), for worlds whose pair groups are polygon-polygon
@@ -28,13 +28,15 @@
 // cotangent.  Per world, in order:
 //
 //   1. Recompute: integration and gravity, the world-frame vertices and
-//      every pair's SAT and clip, with fused_step.cuh, the forward kernel's
-//      own code, so every decision is the forward's to the bit.  The
-//      integrated state, the contact planes and the flags go to scratch.
-//   2. The solver's reverse pass: Reverse of contact_solver_bwd.cuh, the
-//      solver reverse kernel's own code, on those scratch planes.  It
-//      yields the cotangents of the integrated state and of each lane's
-//      pen_x, pen_y, pt_x, pt_y.
+//      every pair's SAT and clip, with fused_step.cuh's integrate_body,
+//      part_vertices and pair_lanes, the forward kernel's own code, so
+//      every decision is the forward's to the bit.  The integrated state
+//      stays in shared memory; the contact planes and the flags go to the
+//      world's tape.
+//   2. The solver's reverse pass: the warp walk (Walk) of
+//      contact_solver_bwd.cuh, the solver reverse kernel's own code, on
+//      those planes.  It yields the cotangents of the integrated state and
+//      of each lane's pen_x, pen_y, pt_x, pt_y.
 //   3. The lanes' adjoint, by each pair's kind.  A pair with a nonzero
 //      lane cotangent is run forward again in registers and walked back.
 //      A polygon pair (PairSat, its two lanes): through the lanes' depths
@@ -52,8 +54,9 @@
 //      its rows translating without rotation).  Every term
 //      of a pair's adjoint is a product with one of its lane cotangents, so
 //      a pair whose cotangents are all zero (its lanes inactive, in a world
-//      without NaN) is skipped.  The vertex cotangents gwx, gwy
-//      [MAX_PARTS * MAX_V] accumulate over the pairs that share a part.
+//      without NaN) is skipped.  Each pair writes its parts' vertex
+//      cotangents to a slot of its own; each part then sums its pairs'
+//      slots in pair order.
 //   4. Vertex adjoint: an overridden part writes its cotangents to its rows
 //      of dtx, dty (rows past the vertices it reads are 0); a body part adds
 //      them to its body's x and y and, when it rotates (a polygon or a
@@ -63,44 +66,30 @@
 //   5. Integration adjoint: gravity is a constant, so in either order
 //      dv += dq * dt and domega += dangle * dt.
 //
-// What bounds it: at the lander's shapes (24 pairs, C=48, n=4, B=8192) a
-// call reads 12 [n,B] planes (the primal state and the output cotangents)
-// and the terrain rows the pairs use, and writes 6 [n,B] planes and the
-// 2 x 56 terrain rows, about 7 MB, 2 us at 3.35 TB/s.  Its arithmetic is
-// the forward's SAT and solve again, the solver reverse pass's (about
-// twice the solve), and the SAT adjoint of the pairs that touch; the
-// scratch (the solver's tape, 1,932 rows of B floats at these shapes, plus
-// 6n + 8C rows and the flags, about 77 MB at B=8192) is written once and
-// read about twice, mostly from L2.  A circle lane's adjoint is some 40 to
-// 80 float32 operations in registers (a box-box lane's about 50), far
-// below its pair's solve.  The design is the simple one: one
-// thread per world (64 blocks of 128 at B=8192, half the SMs), the world's
-// vertices and their cotangents in per-thread arrays, planes addressed
-// [row * B + b].  Spreading a world's pairs and lanes over a warp is later
-// work.  Built, like the other sources, without fast math and with
-// --fmad=false.
+// What bounds it: at the crate pile's shapes (88 one-lane pairs, C=88,
+// n=14, B=8192) a call reads 12 [n,B] planes (the primal state and the
+// output cotangents) and writes 6, about 8 MB, 2.5 us at 3.35 TB/s; its
+// float32 operations, the forward step again, the solver reverse pass's
+// (about twice the solve) and the touching pairs' adjoints, are about 385
+// M, 5.7 us at 67 TFLOP/s.  Its tape (the solver's, 4,888 floats a world
+// at these shapes, plus the contact planes, their cotangents and the
+// flags, 5,614 in all: 184 MB at B=8192) is written once and read about
+// twice.  As in the solver's reverse pass, latency bounds it, and the
+// design is the same: one warp walks one world, W worlds a block (the
+// wrapper's plan), the warp's threads taking the world's bodies, parts and
+// pairs in turn and, in the solve, its lanes; sums over a body's lanes or
+// parts and over a part's pairs are taken in the serial kernel's order, so
+// every launch gives the same bits, with no float atomics.  The
+// integrated state, the vertices, their cotangents and the pairs' slots
+// sit in dynamic shared memory beside the solver walk's (StepSmem, sized
+// by n, C, the parts and the pairs); a pair's SAT, clip and adjoint run in
+// one thread's registers and stack.  Built, like the other sources,
+// without fast math and with --fmad=false.
 
 #include "contact_solver_bwd.cuh"
 #include "fused_step.cuh"
 
 namespace {
-
-// Row offsets in the scratch; every row holds B floats.
-struct StepLayout {
-  size_t state, geo, dgeo, flags, rows;
-  __host__ __device__ StepLayout(int C, int n, int I, int P) {
-    size_t r = Layout(C, n, I, P).rows;  // the solver's tape
-    state = r;  // the integrated body planes [6, n]
-    r += (size_t)6 * n;
-    geo = r;  // pen_x, pen_y, pt_x, pt_y [4, C]
-    r += (size_t)4 * C;
-    dgeo = r;  // their cotangents [4, C]
-    r += (size_t)4 * C;
-    flags = r;  // the active flags, uint8 [C, B]
-    r += (size_t)(C + 3) / 4;
-    rows = r;
-  }
-};
 
 struct StepGrads {
   float *dpx, *dpy, *dvx, *dvy, *dang, *dom;  // [n, B]
@@ -498,146 +487,275 @@ __device__ bool any_nonzero(const float* g, int k) {
   return false;
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_step_bwd_kernel(const BwdArgs args, const StepArgs st,
-                      const StepGrads out) {
-  const Args& f = args.f;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= f.B) return;
-  const size_t B = f.B;
+// Offsets in one world's tape, in floats: the solver's tape, then the
+// recomputed contact planes and their cotangents.
+struct StepTape {
+  int geo, dgeo, flags, rows;
+  __host__ __device__ StepTape(int C, int n, int I, int P) {
+    int r = Tape(C, n, I, P).rows;
+    geo = r;  // pen_x, pen_y, pt_x, pt_y [4, C]
+    r += 4 * C;
+    dgeo = r;  // their cotangents [4, C]
+    r += 4 * C;
+    flags = r;  // the active flags, uint8 [C]
+    r += byte_words(C);
+    rows = r;
+  }
+};
 
-  // 1. the recompute: the integrated state, contact planes and flags go to
-  // the scratch planes that f names
-  float qx[MAX_BODIES], qy[MAX_BODIES], qc[MAX_BODIES], qs[MAX_BODIES];
-  integrate_world(f, st, b, qx, qy, qc, qs);
-  float wx[MAX_PARTS * MAX_V], wy[MAX_PARTS * MAX_V];
-  world_vertices(st, B, b, qx, qy, qc, qs, wx, wy);
-  pair_geometry(st, f.C, B, b, wx, wy);
+// Offsets in one world's shared memory, in words of sizeof(float): the
+// solver walk's, then the step's own.  R is the most vertex rows a pair
+// reads of one of its parts.
+struct StepSmem {
+  int state, qc, qs, wx, wy, gwx, gwy, slot, words;
+  __host__ __device__ StepSmem(int C, int n, int P, int npairs, int R) {
+    int r = WorldSmem(C, n).words;
+    state = r;  // the integrated x, y, vx, vy, angle, omega [6, n]
+    r += 6 * n;
+    qc = r;  // the cosines and sines of the integrated angles [n]
+    r += n;
+    qs = r;
+    r += n;
+    wx = r;  // the world-frame vertices [P, MAX_V]
+    r += P * MAX_V;
+    wy = r;
+    r += P * MAX_V;
+    gwx = r;  // their cotangents [P, MAX_V]
+    r += P * MAX_V;
+    gwy = r;
+    r += P * MAX_V;
+    slot = r;  // each pair's: x and y of its part A's rows, then B's
+    r += npairs * 4 * R;  // [npairs, 4, R]
+    words = r;
+  }
+};
 
-  // 2. the solver's reverse pass
-  World w(f, b);
-  Reverse r(args, w);
-  r.run();
+// the cotangents of the step's six output body planes [n, B]
+struct StepCots {
+  const float *gpx, *gpy, *gvx, *gvy, *gang, *gom;
+};
 
-  // 3. the lanes' adjoint of every pair, by its kind
-  float gwx[MAX_PARTS * MAX_V], gwy[MAX_PARTS * MAX_V];
-  for (int k = 0; k < st.P * MAX_V; ++k) gwx[k] = gwy[k] = 0.0f;
-  for (int q = 0; q < st.npairs; ++q) {
-    const int32_t* qi = st.pair_i + q * PAIR_COLS;
-    const int pa = qi[Q_A] * MAX_V, pb = qi[Q_B] * MAX_V;
-    const size_t i0 = (size_t)qi[Q_LANE] * B + b;
-    const float ra = st.pair_f[2 * q], rb = st.pair_f[2 * q + 1];
-    if (qi[Q_KIND] == K_PP) {
-      const size_t i1 = i0 + B;
-      const float g[8] = {args.dpen_x[i0], args.dpen_x[i1], args.dpen_y[i0],
-                          args.dpen_y[i1], args.dpt_x[i0],  args.dpt_x[i1],
-                          args.dpt_y[i0],  args.dpt_y[i1]};
-      if (!any_nonzero(g, 8)) continue;
-      PairSat s;
-      s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
-            qi[Q_VB], qi[Q_MASK_B]);
-      pair_bwd(s, wx + pa, wy + pa, qi[Q_VA], wx + pb, wy + pb, qi[Q_VB], g,
-               gwx + pa, gwy + pa, gwx + pb, gwy + pb);
-      continue;
+// adjoint of pair q's lanes, whose pen_x, pen_y, pt_x, pt_y cotangents are
+// at dgeo [4, C], into its slot sl: the cotangents of part A's vertex rows
+// (x, then y) and of part B's, each [R] (a pair reads at most R rows of a
+// part)
+__device__ void pair_adjoint(const StepArgs& st, int q, const float* wx,
+                             const float* wy, const float* dgeo, int C, int R,
+                             float* sl) {
+  for (int k = 0; k < 4 * R; ++k) sl[k] = 0.0f;
+  float* gax = sl;
+  float* gay = sl + R;
+  float* gbx = sl + 2 * R;
+  float* gby = sl + 3 * R;
+  const int32_t* qi = st.pair_i + q * PAIR_COLS;
+  const int pa = qi[Q_A] * MAX_V, pb = qi[Q_B] * MAX_V;
+  const int c = qi[Q_LANE];
+  const float ra = st.pair_f[2 * q], rb = st.pair_f[2 * q + 1];
+  if (qi[Q_KIND] == K_PP) {
+    const float g[8] = {dgeo[c], dgeo[c + 1], dgeo[C + c], dgeo[C + c + 1],
+                        dgeo[2 * C + c], dgeo[2 * C + c + 1],
+                        dgeo[3 * C + c], dgeo[3 * C + c + 1]};
+    if (!any_nonzero(g, 8)) return;
+    PairSat s;
+    s.run(wx + pa, wy + pa, qi[Q_VA], qi[Q_MASK_A], wx + pb, wy + pb,
+          qi[Q_VB], qi[Q_MASK_B]);
+    pair_bwd(s, wx + pa, wy + pa, qi[Q_VA], wx + pb, wy + pb, qi[Q_VB], g,
+             gax, gay, gbx, gby);
+    return;
+  }
+  // a one-lane pair reads its own lane's cotangents only
+  const float g[4] = {dgeo[c], dgeo[C + c], dgeo[2 * C + c], dgeo[3 * C + c]};
+  if (!any_nonzero(g, 4)) return;
+  switch (qi[Q_KIND]) {
+    case K_CC: {
+      CcLane l;
+      l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], rb);
+      cc_lane_bwd(l, g, gax, gay, gbx, gby);
+      break;
     }
-    // a one-lane pair reads its own lane's cotangents only
-    const float g[4] = {args.dpen_x[i0], args.dpen_y[i0], args.dpt_x[i0],
-                        args.dpt_y[i0]};
-    if (!any_nonzero(g, 4)) continue;
-    switch (qi[Q_KIND]) {
-      case K_CC: {
-        CcLane l;
-        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], rb);
-        cc_lane_bwd(l, g, gwx + pa, gwy + pa, gwx + pb, gwy + pb);
-        break;
-      }
-      case K_CB: {
-        CbLane l;
-        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
-        cb_lane_bwd(l, wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1],
-                    wy[pb + 1], g, gwx + pa, gwy + pa, gwx + pb, gwy + pb);
-        break;
-      }
-      case K_AREA_CB: {
-        AreaCbLane l;
-        l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
-        area_cb_lane_bwd(l, g, gwx + pa, gwy + pa, gwx + pb, gwy + pb);
-        break;
-      }
-      case K_BB: {
-        BbLane l;
-        l.run(wx[pa], wy[pa], wx[pa + 1], wy[pa + 1], wx[pb], wy[pb],
-              wx[pb + 1], wy[pb + 1]);
-        bb_lane_bwd(l, wx[pa], wy[pa], wx[pa + 1], wy[pa + 1], wx[pb], wy[pb],
-                    wx[pb + 1], wy[pb + 1], g, gwx + pa, gwy + pa, gwx + pb,
-                    gwy + pb);
-        break;
-      }
-      default:
-        break;
+    case K_CB: {
+      CbLane l;
+      l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
+      cb_lane_bwd(l, wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1],
+                  wy[pb + 1], g, gax, gay, gbx, gby);
+      break;
+    }
+    case K_AREA_CB: {
+      AreaCbLane l;
+      l.run(wx[pa], wy[pa], ra, wx[pb], wy[pb], wx[pb + 1], wy[pb + 1]);
+      area_cb_lane_bwd(l, g, gax, gay, gbx, gby);
+      break;
+    }
+    case K_BB: {
+      BbLane l;
+      l.run(wx[pa], wy[pa], wx[pa + 1], wy[pa + 1], wx[pb], wy[pb],
+            wx[pb + 1], wy[pb + 1]);
+      bb_lane_bwd(l, wx[pa], wy[pa], wx[pa + 1], wy[pa + 1], wx[pb], wy[pb],
+                  wx[pb + 1], wy[pb + 1], g, gax, gay, gbx, gby);
+      break;
+    }
+    default:
+      break;
+  }
+}
+
+__global__ void __launch_bounds__(LANES * MAX_WORLDS_PER_BLOCK)
+fused_step_bwd_kernel(const SolveOps o, const StepArgs st, const StepCots cot,
+                      const StepGrads out, float* scratch, int rows, int R,
+                      int B, int W) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const int b = blockIdx.x * W + warp;
+  if (b >= B) return;
+  const size_t Bs = B;
+  const int C = o.C, n = o.n;
+  const StepSmem M(C, n, st.P, st.npairs, R);
+  const StepTape L(C, n, o.iterations, o.position_iterations);
+  float* s = smem + warp * M.words;
+  float* t = scratch + (size_t)b * rows;
+  float* state = s + M.state;
+  float *qc = s + M.qc, *qs = s + M.qs;
+  float *wx = s + M.wx, *wy = s + M.wy;
+  float *gwx = s + M.gwx, *gwy = s + M.gwy;
+  float* geo = t + L.geo;
+  float* dgeo = t + L.dgeo;
+  uint8_t* flags = reinterpret_cast<uint8_t*>(t + L.flags);
+
+  // 1. the recompute: integration by body, the vertices by part, the
+  // pairs' lanes by pair
+  for (int i = lane; i < n; i += LANES) {
+    float q[6];
+    integrate_body(st, i * Bs + b, o.movable[i] != 0, o.dt, q);
+    for (int m = 0; m < 6; ++m) state[m * n + i] = q[m];
+    qc[i] = cosf(q[4]);
+    qs[i] = sinf(q[4]);
+  }
+  __syncwarp();
+  for (int p = lane; p < st.P; p += LANES) {
+    part_vertices(st, Bs, b, p, state, state + n, qc, qs, wx + p * MAX_V,
+                  wy + p * MAX_V);
+  }
+  __syncwarp();
+  for (int q = lane; q < st.npairs; q += LANES) {
+    Lane l[2];
+    const int k = pair_lanes(st, q, wx, wy, l);
+    const int c = st.pair_i[q * PAIR_COLS + Q_LANE];
+    for (int j = 0; j < k; ++j) {
+      geo[c + j] = l[j].pen_x;
+      geo[C + c + j] = l[j].pen_y;
+      geo[2 * C + c + j] = l[j].pt_x;
+      geo[3 * C + c + j] = l[j].pt_y;
+      flags[c + j] = l[j].active;
     }
   }
+  __syncwarp();
 
-  // 4. the vertices: into the terrain rows, or the bodies' poses
-  float gx[MAX_BODIES], gy[MAX_BODIES], ga[MAX_BODIES];
-  for (int i = 0; i < f.n; ++i) {
-    gx[i] = r.gqx[i];
-    gy[i] = r.gqy[i];
-    ga[i] = r.gqa[i];
+  // 2. the solver's reverse walk on those planes and the integrated state
+  const WorldIO io{
+      Rows{geo, 1}, Rows{geo + C, 1}, Rows{geo + 2 * C, 1},
+      Rows{geo + 3 * C, 1},
+      flags, 1,
+      Rows{state, 1}, Rows{state + n, 1}, Rows{state + 2 * n, 1},
+      Rows{state + 3 * n, 1}, Rows{state + 4 * n, 1}, Rows{state + 5 * n, 1},
+      Rows{cot.gpx + b, Bs}, Rows{cot.gpy + b, Bs}, Rows{cot.gvx + b, Bs},
+      Rows{cot.gvy + b, Bs}, Rows{cot.gang + b, Bs}, Rows{cot.gom + b, Bs},
+      dgeo, dgeo + C, dgeo + 2 * C, dgeo + 3 * C, 1};
+  Walk w(o, io, t, s, lane);
+  w.run();
+
+  // 3. the lanes' adjoint by pair, into its slot; then each part's vertex
+  // cotangents, its pairs' slots summed in pair order
+  for (int q = lane; q < st.npairs; q += LANES) {
+    pair_adjoint(st, q, wx, wy, dgeo, C, R, s + M.slot + q * 4 * R);
   }
-  for (int p = 0; p < st.P; ++p) {
-    const int32_t* pi = st.part_i + p * PART_COLS;
-    const int nv = pi[P_NV];
-    const float* gpx = gwx + p * MAX_V;
-    const float* gpy = gwy + p * MAX_V;
+  __syncwarp();
+  for (int p = lane; p < st.P; p += LANES) {
+    float* px = gwx + p * MAX_V;
+    float* py = gwy + p * MAX_V;
+    for (int v = 0; v < MAX_V; ++v) px[v] = py[v] = 0.0f;
+    for (int q = 0; q < st.npairs; ++q) {
+      const int32_t* qi = st.pair_i + q * PAIR_COLS;
+      const float* sl = s + M.slot + q * 4 * R;
+      if (qi[Q_A] == p) {
+        for (int v = 0; v < R; ++v) {
+          px[v] += sl[v];
+          py[v] += sl[R + v];
+        }
+      } else if (qi[Q_B] == p) {
+        for (int v = 0; v < R; ++v) {
+          px[v] += sl[2 * R + v];
+          py[v] += sl[3 * R + v];
+        }
+      }
+    }
+    // an overridden part's into its rows of dtx, dty (rows past the
+    // vertices it reads are 0)
     if ((st.override_bits >> p) & 1) {
+      const int nv = st.part_i[p * PART_COLS + P_NV];
       const int k = __popc(st.override_bits & ((1u << p) - 1u));
       const size_t row = (size_t)k * st.V;
       for (int v = 0; v < st.V; ++v) {
-        out.dtx[(row + v) * B + b] = v < nv ? gpx[v] : 0.0f;
-        out.dty[(row + v) * B + b] = v < nv ? gpy[v] : 0.0f;
+        out.dtx[(row + v) * Bs + b] = v < nv ? px[v] : 0.0f;
+        out.dty[(row + v) * Bs + b] = v < nv ? py[v] : 0.0f;
       }
-      continue;
     }
-    // px = c lx - s ly + x, py = s lx + c ly + y (a box: lx + x, ly + y)
-    const int body = pi[P_BODY];
-    const float* lv = st.part_lv + (size_t)p * st.V * 2;
-    float g_c = 0.0f, g_s = 0.0f;
-    for (int v = 0; v < nv; ++v) {
-      const float lx = lv[2 * v], ly = lv[2 * v + 1];
-      gx[body] += gpx[v];
-      gy[body] += gpy[v];
-      g_c += gpx[v] * lx + gpy[v] * ly;
-      g_s += gpy[v] * lx - gpx[v] * ly;
-    }
-    if (pi[P_ROTATE]) ga[body] += g_s * qc[body] - g_c * qs[body];
   }
+  __syncwarp();
 
+  // 4. the vertices of each body's parts, in part order, into its pose:
+  // px = c lx - s ly + x, py = s lx + c ly + y (a box: lx + x, ly + y);
   // 5. the integration: q = p + v dt, and gravity adds a constant to v
-  for (int i = 0; i < f.n; ++i) {
-    const size_t k = i * B + b;
-    out.dpx[k] = gx[i];
-    out.dpy[k] = gy[i];
-    out.dang[k] = ga[i];
-    out.dvx[k] = r.gvx[i] + gx[i] * f.dt;
-    out.dvy[k] = r.gvy[i] + gy[i] * f.dt;
-    out.dom[k] = r.gom[i] + ga[i] * f.dt;
+  for (int i = lane; i < n; i += LANES) {
+    float gx = w.body(S_GQX)[i], gy = w.body(S_GQY)[i], ga = w.body(S_GQA)[i];
+    for (int p = 0; p < st.P; ++p) {
+      const int32_t* pi = st.part_i + p * PART_COLS;
+      if (((st.override_bits >> p) & 1) || pi[P_BODY] != i) continue;
+      const int nv = pi[P_NV];
+      const float* gpx = gwx + p * MAX_V;
+      const float* gpy = gwy + p * MAX_V;
+      const float* lv = st.part_lv + (size_t)p * st.V * 2;
+      float g_c = 0.0f, g_s = 0.0f;
+      for (int v = 0; v < nv; ++v) {
+        const float lx = lv[2 * v], ly = lv[2 * v + 1];
+        gx += gpx[v];
+        gy += gpy[v];
+        g_c += gpx[v] * lx + gpy[v] * ly;
+        g_s += gpy[v] * lx - gpx[v] * ly;
+      }
+      if (pi[P_ROTATE]) ga += g_s * qc[i] - g_c * qs[i];
+    }
+    const size_t k = i * Bs + b;
+    out.dpx[k] = gx;
+    out.dpy[k] = gy;
+    out.dang[k] = ga;
+    out.dvx[k] = w.body(S_GVX)[i] + gx * o.dt;
+    out.dvy[k] = w.body(S_GVY)[i] + gy * o.dt;
+    out.dom[k] = w.body(S_GOM)[i] + ga * o.dt;
   }
 }
 
 }  // namespace
 
-// Rows of B floats the reverse pass needs as scratch.
+// Floats of scratch the reverse pass needs per world.
 extern "C" int fused_step_bwd_scratch_rows(int C, int n, int iterations,
                                            int position_iterations) {
-  return (int)StepLayout(C, n, iterations, position_iterations).rows;
+  return StepTape(C, n, iterations, position_iterations).rows;
+}
+
+// Bytes of dynamic shared memory one world of the reverse pass takes; R is
+// the most vertex rows a pair reads of one of its parts.
+extern "C" int fused_step_bwd_smem_bytes(int C, int n, int P, int npairs,
+                                         int R) {
+  return StepSmem(C, n, P, npairs, R).words * (int)sizeof(float);
 }
 
 // Launches the reverse pass on `stream` and returns cudaGetLastError().
 // Inputs as in fused_step_fwd; g* are the cotangents of its six output
 // body planes, d* receive those of its six input body planes and dtx, dty
-// those of the terrain planes; scratch is
-// [fused_step_bwd_scratch_rows(...), B].
+// those of the terrain planes; body_lanes is the per-body lane list of
+// SolveOps; scratch is [B, fused_step_bwd_scratch_rows(...)]; pair_rows is
+// the most vertex rows a pair reads of one of its parts; worlds_per_block
+// (1 to 8) worlds share a block, one warp each.
 extern "C" int fused_step_bwd(
     const float* px, const float* py, const float* vx, const float* vy,
     const float* ang, const float* om, const float* tx, const float* ty,
@@ -650,44 +768,40 @@ extern "C" int fused_step_bwd(
     const float* lane_const, const int32_t* movable,
     const float* body_im, const float* body_ii,
     const int32_t* joint_body, const float* joint_f,
-    float* scratch,
+    const int32_t* body_lanes, float* scratch,
     int P, int npairs, int lanes, int V, int override_bits, int symplectic,
     float gdx, float gdy,
     int B, int C, int n, int J, int iterations, int position_iterations,
     float dt, float baumgarte, float slop, float baumgarte_dt,
-    float max_bias, int has_max_bias, void* stream) {
+    float max_bias, int has_max_bias, int pair_rows, int worlds_per_block,
+    void* stream) {
+  const int W = worlds_per_block, R = pair_rows;
+  const size_t smem =
+      (size_t)W * StepSmem(C, n, P, npairs, R).words * sizeof(float);
   // lanes: what the pairs' kinds give, two a pp pair and one any other
   if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C != lanes ||
-      lanes < npairs || lanes > 2 * npairs || B <= 0) {
+      lanes < npairs || lanes > 2 * npairs || B <= 0 || R < 1 || R > MAX_V ||
+      W < 1 || W > MAX_WORLDS_PER_BLOCK || smem > SMEM_LIMIT) {
     return (int)cudaErrorInvalidValue;
   }
-  const StepLayout L(C, n, iterations, position_iterations);
-  const size_t plane = (size_t)C * B, body = (size_t)n * B;
-  float* state = scratch + L.state * B;
-  float* geo = scratch + L.geo * B;
-  float* dgeo = scratch + L.dgeo * B;
-  uint8_t* flags = reinterpret_cast<uint8_t*>(scratch + L.flags * B);
-  float *sx = state, *sy = state + body, *svx = state + 2 * body,
-        *svy = state + 3 * body, *sa = state + 4 * body, *sw = state + 5 * body;
-  // the recompute writes the integrated state where the solve reads it;
-  // the solver's tape is the scratch's first rows
-  BwdArgs args{
-      Args{geo, geo + plane, geo + 2 * plane, geo + 3 * plane, flags,
-           sx, sy, svx, svy, sa, sw,
-           sx, sy, svx, svy, sa, sw,
-           body_a, body_b, partner, lane_const, movable,
-           body_im, body_ii, joint_body, joint_f, scratch,
-           B, C, n, J, iterations, position_iterations,
-           dt, baumgarte, slop, baumgarte_dt, max_bias, has_max_bias},
-      gpx, gpy, gvx, gvy, gang, gom,
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      dgeo, dgeo + plane, dgeo + 2 * plane, dgeo + 3 * plane};
-  StepArgs st{px, py, vx, vy, ang, om, tx, ty, part_i, part_lv, pair_i, pair_f,
-              geo, flags, P, npairs, V, override_bits, symplectic,
-              gdx, gdy};
-  StepGrads out{dpx, dpy, dvx, dvy, dang, dom, dtx, dty};
-  const int blocks = (B + THREADS - 1) / THREADS;
-  fused_step_bwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      args, st, out);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_step_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const SolveOps ops{body_a, body_b, partner, lane_const, movable,
+                     body_im, body_ii, joint_body, joint_f, body_lanes,
+                     C, n, J, iterations, position_iterations,
+                     dt, baumgarte, slop, baumgarte_dt, max_bias, has_max_bias};
+  const StepArgs st{px, py, vx, vy, ang, om, tx, ty, part_i, part_lv, pair_i,
+                    pair_f, nullptr, nullptr, P, npairs, V, override_bits,
+                    symplectic, gdx, gdy};
+  const StepCots cot{gpx, gpy, gvx, gvy, gang, gom};
+  const StepGrads out{dpx, dpy, dvx, dvy, dang, dom, dtx, dty};
+  const int rows = StepTape(C, n, iterations, position_iterations).rows;
+  const int blocks = (B + W - 1) / W, threads = W * LANES;
+  fused_step_bwd_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      ops, st, cot, out, scratch, rows, R, B, W);
   return (int)cudaGetLastError();
 }

@@ -132,10 +132,10 @@ _SIGNATURES = {
         + [_P] * 6  # cotangents of the six body planes (out)
         + [_P] * 4  # cotangents of pen_x, pen_y, pt_x, pt_y (out)
         + [_P] * 9  # the operands, as for contact_solve_fwd
-        + [_P]  # scratch
+        + [_P] * 2  # body_lanes, scratch
         + [_I] * 6  # B, C, n, J, iterations, position_iterations
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
-        + [_I, _P]  # has_max_bias, stream
+        + [_I, _I, _P]  # has_max_bias, worlds_per_block, stream
     ),
     "fused_step_fwd": (
         [_P] * 6  # px, py, vx, vy, angle, omega
@@ -159,17 +159,20 @@ _SIGNATURES = {
         + [_P] * 2  # cotangents of the terrain planes (out)
         + [_P] * 4  # part_i, part_lv, pair_i, pair_f
         + [_P] * 9  # the solver operands, as for contact_solve_fwd
-        + [_P]  # scratch
+        + [_P] * 2  # body_lanes, scratch
         + [_I] * 6  # P, pairs, lanes, V, override_bits, symplectic
         + [_F] * 2  # gravity x and y times dt
         + [_I] * 6  # B, C, n, J, iterations, position_iterations
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
-        + [_I, _P]  # has_max_bias, stream
+        + [_I] * 3  # has_max_bias, pair_rows, worlds_per_block
+        + [_P]  # stream
     ),
     "contact_solver_num_fields": [],
     "contact_solver_max_bodies": [],
     "contact_solver_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations
+    "contact_solver_bwd_smem_bytes": [_I] * 2,  # C, n
     "fused_step_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations
+    "fused_step_bwd_smem_bytes": [_I] * 5,  # C, n, P, pairs, pair_rows
 }
 
 

@@ -6,7 +6,9 @@ of ``engine.batched.solve_contacts_bm`` and then the spring-damper joints
 of ``engine.batched.apply_joints_bm``, one CUDA thread per world.
 ``csrc/contact_solver_bwd.cu`` replaces its reverse pass,
 ``_solver_bwd_kernel``: it recomputes the forward from the primal inputs
-and returns the cotangents of the body planes and of the contact planes.
+and returns the cotangents of the body planes and of the contact planes,
+one warp per world with the world's state in shared memory,
+``BWD_WORLDS_PER_BLOCK`` worlds a block (fewer where they would not fit).
 
 :func:`solve_contacts` chooses by the tensors' device and nothing else: on
 CPU tensors it runs :func:`solve_contacts_plain`, and autograd of its
@@ -34,6 +36,11 @@ from parallax_tpu_torch.engine.batched import (
 # kernel launches in this process (see module docstring)
 launches = 0
 bwd_launches = 0
+
+# worlds a block of a reverse-pass kernel walks, one warp each (at most 8)
+BWD_WORLDS_PER_BLOCK = 8
+# dynamic shared memory a block may take on the H100: 227 KB
+SMEM_LIMIT = 232448
 
 _CON_PLANES = ("pen_x", "pen_y", "pt_x", "pt_y")
 
@@ -179,6 +186,47 @@ def solver_operands(world, config: ContactSolverConfig) -> SolverOperands:
     return world.static(("solver_operands", config.restitution_mode), build)
 
 
+def body_lanes(world) -> torch.Tensor:
+    """Per body, the lanes touching it in lane order, as the reverse-pass
+    kernels sum them: int32 ``[n + 1 + 2C]``, the offsets of each body's
+    entries, then the entries ``2 * lane + side`` (side 0: the lane's body
+    A, 1: its body B).  The kernels' per-body sums follow the serial
+    solve's lane order; a 2x2 block adds its lead's terms and then its
+    partner's, which is lane order only while a manifold's two lanes sit
+    side by side, as ``engine/collider.py`` lays them out: anything else
+    raises."""
+
+    def build():
+        table = world.table
+        C, n = table.n_contacts, world.n_bodies
+        partner = np.asarray(table.partner, np.int64)
+        lanes = np.arange(C)
+        if not np.all((partner < 0) | (np.abs(partner - lanes) == 1)):
+            raise ValueError("reverse-pass kernels: a manifold's two lanes must be adjacent")
+        touch = [[] for _ in range(n)]
+        for c, (a, b) in enumerate(zip(table.body_a, table.body_b)):
+            touch[a].append(2 * c)
+            touch[b].append(2 * c + 1)
+        off = np.cumsum([0] + [len(x) for x in touch])
+        flat = np.concatenate([off, *map(np.asarray, touch)]).astype(np.int32)
+        return torch.from_numpy(flat).to(world.device)
+
+    return world.static(("body_lanes",), build)
+
+
+def bwd_worlds_per_block(per_world: int, kernel: str) -> int:
+    """The worlds a block of a reverse-pass kernel holds: at most
+    ``BWD_WORLDS_PER_BLOCK``, as many as ``SMEM_LIMIT`` leaves room for
+    at ``per_world`` bytes of shared memory each.  A world over the limit
+    alone raises ``ValueError``: the kernel cannot run it."""
+    if per_world > SMEM_LIMIT:
+        raise ValueError(
+            f"{kernel}: one world needs {per_world} bytes of shared memory, over the "
+            f"{SMEM_LIMIT} bytes (227 KB) a block may take on the H100"
+        )
+    return max(1, min(BWD_WORLDS_PER_BLOCK, SMEM_LIMIT // per_world))
+
+
 # ---------------------------------------------------------------------------
 # plain version, wrapper, launch
 # ---------------------------------------------------------------------------
@@ -304,8 +352,9 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _tail(world, iterations, position_iterations, dt, config, B, C, n, stream):
-    """The scalar arguments both kernels end with."""
+def _tail(world, iterations, position_iterations, dt, config, B, C, n, stream, *plan):
+    """The scalar arguments the kernels end with; a reverse pass's ``plan``
+    (its worlds per block) comes before the stream."""
     max_bias = config.baumgarte_max_bias
     return (
         B, C, n, world.joints.n_joints,
@@ -314,6 +363,7 @@ def _tail(world, iterations, position_iterations, dt, config, B, C, n, stream):
         float(config.baumgarte_dt),
         0.0 if max_bias is None else float(max_bias),
         0 if max_bias is None else 1,
+        *plan,
         ctypes.c_void_p(stream),
     )
 
@@ -367,7 +417,8 @@ def _solve_bwd_cuda(world, s, con, grads, iterations, position_iterations, dt, c
     ds = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
     dcon = [torch.empty((C, B), dtype=torch.float32, device=device) for _ in range(4)]
     rows = lib.contact_solver_bwd_scratch_rows(C, n, iterations, position_iterations)
-    scratch = torch.empty((rows, B), dtype=torch.float32, device=device)
+    scratch = torch.empty((B, rows), dtype=torch.float32, device=device)
+    W = bwd_worlds_per_block(lib.contact_solver_bwd_smem_bytes(C, n), "contact_solve_bwd")
     err = lib.contact_solve_bwd(
         *(_ptr(getattr(con, k)) for k in (*_CON_PLANES, "active")),
         *(_ptr(x) for x in s),
@@ -375,8 +426,9 @@ def _solve_bwd_cuda(world, s, con, grads, iterations, position_iterations, dt, c
         *(_ptr(x) for x in ds),
         *(_ptr(x) for x in dcon),
         *(_ptr(x) for x in ops),
+        _ptr(body_lanes(world)),
         _ptr(scratch),
-        *_tail(world, iterations, position_iterations, dt, config, B, C, n, stream),
+        *_tail(world, iterations, position_iterations, dt, config, B, C, n, stream, W),
     )
     if err != 0:
         raise RuntimeError(f"contact_solve_bwd launch failed: CUDA error {err}")

@@ -13,8 +13,9 @@ version, :func:`fused_step_plain`, is the split step of ``engine.batched``
 with the plain solver.  ``csrc/fused_step_bwd.cu`` replaces its reverse
 pass, ``_step_bwd_kernel``, for the same five kinds: it recomputes the step
 from the primal inputs and returns the cotangents of the body planes and
-of the terrain planes; its plain version, :func:`fused_step_bwd_plain`, is
-autograd of :func:`fused_step_plain`.  A world with a kind neither the JAX
+of the terrain planes, one warp per world with the world's state in shared
+memory (the solver reverse pass's launch plan); its plain version,
+:func:`fused_step_bwd_plain`, is autograd of :func:`fused_step_plain`.  A world with a kind neither the JAX
 fused kernel nor these have (``cp``, ``bp`` and the area kinds other than
 ``area_cb``) raises: it runs on the split step.
 
@@ -321,10 +322,11 @@ class _FusedStep(torch.autograd.Function):
         return (None, dtx, dty, *ds)
 
 
-def _launch_operands(statics, s, tx, ty):
+def _launch_operands(statics, s, tx, ty, plan=None):
     """Check the planes and the world; return the library, the pointers of
-    the kernels' static operands, the scalar arguments both kernels end
-    with, and the shapes."""
+    the kernels' static operands, the scalar arguments the kernels end
+    with, and the shapes.  For the reverse pass ``plan(lib, world, C, n,
+    P, pairs)`` gives its launch plan, which goes before the stream."""
     from parallax_tpu_torch.ops import _build
     from parallax_tpu_torch.ops.contact_solver import _check, _ptr, _tail, solver_operands
 
@@ -350,11 +352,12 @@ def _launch_operands(statics, s, tx, ty):
     if accel is not None:
         gx, gy = gx + accel[0], gy + accel[1]
     stream = torch.cuda.current_stream(device).cuda_stream
+    pairs = len(fops.pair_i)
     scalars = (
-        P, len(fops.pair_i), _lane_count(world), MAX_VERTS, sum(1 << p for p in tparts),
+        P, pairs, _lane_count(world), MAX_VERTS, sum(1 << p for p in tparts),
         int(cfg.integrator == "symplectic"), float(gx * dt), float(gy * dt),
         *_tail(world, cfg.solver_iterations, cfg.position_iterations, dt, cfg.contact,
-               B, C, n, stream),
+               B, C, n, stream, *(() if plan is None else plan(lib, world, C, n, P, pairs))),
     )
     operands = (*(_ptr(x) for x in fops), *(_ptr(x) for x in sops))
     return lib, operands, scalars, (C, n, B)
@@ -400,11 +403,33 @@ def fused_step_bwd(world, s, terrain_override, grads, dt=None, accel=None):
     return _fused_bwd_cuda((world, tparts, dt, accel), s, tx, ty, grads)
 
 
+def _pair_rows(world) -> int:
+    """The most vertex rows a pair reads of one of its parts (the rows of
+    the reverse pass's per-pair slots in shared memory): 2 for the crate
+    pile's circle and box pairs, up to ``MAX_VERTS`` for polygons."""
+    from parallax_tpu_torch.engine.batched import _group_rows
+
+    def build():
+        return max([1] + [max(_group_rows(world, g)[:2]) for g in world.table.groups])
+
+    return world.static(("pair_rows",), build)
+
+
+def _bwd_plan(lib, world, C, n, P, pairs):
+    """The reverse pass's launch plan: its per-pair slot rows and its
+    worlds per block (``bwd_worlds_per_block``)."""
+    from parallax_tpu_torch.ops.contact_solver import bwd_worlds_per_block
+
+    R = _pair_rows(world)
+    per_world = lib.fused_step_bwd_smem_bytes(C, n, P, pairs, R)
+    return R, bwd_worlds_per_block(per_world, "fused_step_bwd")
+
+
 def _fused_bwd_cuda(statics, s, tx, ty, grads):
     global bwd_launches
-    from parallax_tpu_torch.ops.contact_solver import _check, _ptr
+    from parallax_tpu_torch.ops.contact_solver import _check, _ptr, body_lanes
 
-    lib, operands, scalars, (C, n, B) = _launch_operands(statics, s, tx, ty)
+    lib, operands, scalars, (C, n, B) = _launch_operands(statics, s, tx, ty, _bwd_plan)
     device = s.px.device
     grads = [g.contiguous() for g in grads]
     for name, g in zip(s._fields, grads):
@@ -413,12 +438,12 @@ def _fused_bwd_cuda(statics, s, tx, ty, grads):
     dtx, dty = torch.empty_like(tx), torch.empty_like(ty)
     cfg = statics[0].config
     rows = lib.fused_step_bwd_scratch_rows(C, n, cfg.solver_iterations, cfg.position_iterations)
-    scratch = torch.empty((rows, B), dtype=torch.float32, device=device)
+    scratch = torch.empty((B, rows), dtype=torch.float32, device=device)
     err = lib.fused_step_bwd(
         *(_ptr(x) for x in s), _ptr(tx), _ptr(ty),
         *(_ptr(g) for g in grads),
         *(_ptr(x) for x in ds), _ptr(dtx), _ptr(dty),
-        *operands, _ptr(scratch), *scalars,
+        *operands, _ptr(body_lanes(statics[0])), _ptr(scratch), *scalars,
     )
     if err != 0:
         raise RuntimeError(f"fused_step_bwd launch failed: CUDA error {err}")

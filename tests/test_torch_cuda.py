@@ -670,3 +670,106 @@ def test_step_batched_on_card_launches_its_kernels(card, path):
             n0 = contact_solver.launches
             out, _ = tb.step_batched(w, tb._from_soa(kinds_state(name, w, st0, 64)))
             assert contact_solver.launches == n0 + 1 and torch.isfinite(out.pos).all()
+
+
+def _reverse(kernel, world, s, cot):
+    """One launch of a reverse-pass kernel on the crate pile's planes: the
+    solver's on the lanes of the integrated state, or the fused step's.
+    Returns every cotangent plane."""
+    if kernel == "fused":
+        ds, dtx, dty = fused_step.fused_step_bwd(world, s, None, cot)
+        return (*ds, dtx, dty)
+    c = world.config
+    si, _ = tb.integrate_bm(world, s)
+    con = tb.collide_batched(world, si)
+    ds, *dcon = contact_solver.solve_contacts_bwd(
+        world, si, con, cot, c.solver_iterations, c.position_iterations, c.dt, c.contact)
+    return (*ds, *dcon)
+
+
+def _reverse_plain(kernel, world, s, cot):
+    if kernel == "fused":
+        ds, dtx, dty = fused_step.fused_step_bwd_plain(world, s, None, cot)
+        return (*ds, dtx, dty)
+    c = world.config
+    si, _ = tb.integrate_bm(world, s)
+    con = tb.collide_batched(world, si)
+    ds, *dcon = contact_solver.solve_contacts_bwd_plain(
+        world, si, con, cot, c.solver_iterations, c.position_iterations, c.dt, c.contact)
+    return (*ds, *dcon)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["solve", "fused"])
+def test_reverse_kernels_are_deterministic_on_card(crates, kernel, monkeypatch):
+    """Both reverse-pass kernels, one warp per world with no float atomics,
+    on the crate pile at B=1024: two launches on the same inputs agree to
+    the bit, and so do launches with 1, 3 and 8 worlds a block (each world
+    sums its bodies' terms in lane order, whatever shares its block)."""
+    s, cot = crate_overlap_state(crates, 1024), cotangents(crates.n_bodies, 1024, 5, "cuda")
+    first = _reverse(kernel, crates, s, cot)
+    again = _reverse(kernel, crates, s, cot)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for w in (1, 3, 8):
+        monkeypatch.setattr(contact_solver, "BWD_WORLDS_PER_BLOCK", w)
+        got = _reverse(kernel, crates, s, cot)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, got)), w
+    assert all(torch.isfinite(x).all() for x in first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["solve", "fused"])
+def test_reverse_kernels_hold_a_ragged_batch_on_card(crates, kernel):
+    """B=1021 worlds, which no plan of 2, 4 or 8 worlds a block divides: the
+    last block's idle warps write nothing, and every world's cotangents hold
+    the plain VJP's at rtol 2e-4, atol 1e-5."""
+    s, cot = crate_overlap_state(crates, 1021), cotangents(crates.n_bodies, 1021, 5, "cuda")
+    got = _reverse(kernel, crates, s, cot)
+    want = _reverse_plain(kernel, crates, s, cot)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_solver_reverse_pass_on_billiards48_on_card(card):
+    """The solver reverse pass on billiards48 (52 bodies, more than a warp's
+    32 threads, so body work takes two rounds; C=1320 lanes): at B=64 on
+    ``billiards_pairs_state`` (24 touching pairs, no lane near a kink) its
+    cotangents hold the plain VJP's at rtol 2e-4, atol 1e-5."""
+    env = Billiards(BilliardsConfig(n_object=47), device="cuda")
+    w, c = env.world, env.world.config
+    s = billiards_pairs_state(env, 64)
+    con = tb.collide_batched(w, s)
+    assert int(con.active.sum()) == 24 * 64
+    cot = cotangents(w.n_bodies, 64, 5, "cuda")
+    args = (c.solver_iterations, c.position_iterations, c.dt, c.contact)
+    b0 = contact_solver.bwd_launches
+    got = contact_solver.solve_contacts_bwd(w, s, con, cot, *args)
+    want = contact_solver.solve_contacts_bwd_plain(w, s, con, cot, *args)
+    torch.cuda.synchronize()
+    assert contact_solver.bwd_launches == b0 + 1
+    for x, y in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+    assert all(x.abs().max() > 0 for x in got[0][:4])
+
+
+@pytest.mark.cuda
+def test_reverse_pass_plan_refuses_a_world_over_the_shared_memory_limit_on_card(card):
+    """The reverse passes' launch plan: every world of the repo fits a
+    block (billiards48's 52 bodies and 1320 lanes included), and a world
+    whose shared memory alone exceeds the H100's 227 KB a block (20,000
+    lanes) raises ValueError naming the limit, never a launch."""
+    from parallax_tpu_torch.ops import _build
+
+    lib = _build.load()
+    assert contact_solver.bwd_worlds_per_block(
+        lib.contact_solver_bwd_smem_bytes(1320, 52), "contact_solve_bwd") >= 1
+    assert contact_solver.bwd_worlds_per_block(
+        lib.fused_step_bwd_smem_bytes(88, 14, 14, 88, 2), "fused_step_bwd") >= 4
+    with pytest.raises(ValueError, match="227 KB"):
+        contact_solver.bwd_worlds_per_block(
+            lib.contact_solver_bwd_smem_bytes(20000, 64), "contact_solve_bwd")

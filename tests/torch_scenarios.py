@@ -21,6 +21,28 @@ def cotangents(n, B, seed=5, device="cpu"):
                      for _ in range(6)))
 
 
+def lander_contact_case(env, B, device="cpu"):
+    """The lander's contact scenario: reset from numpy-seeded keys, lowered
+    by 6.2 with vy -= 0.6, after 40 zero-action steps, so that legs and hull
+    touch the terrain.  Returns ``(s, override)``: the ``_SoA`` body planes
+    and the terrain-override planes ``{part: (x, y)}`` of the ground."""
+    k = np.random.default_rng(0).integers(0, 2**32, (B, 2), dtype=np.uint32)
+    st = env.reset_fn_batch(torch.from_numpy(k.astype(np.int64)).to(device))
+    b = st.bodies
+    st = st._replace(bodies=b._replace(
+        pos=b.pos - torch.tensor([0.0, 6.2], device=device),
+        vel=b.vel - torch.tensor([0.0, 0.6], device=device),
+    ))
+
+    def zero(_, obs):
+        return torch.zeros((obs.shape[0], 2), device=obs.device)
+
+    st, _ = env.rollout_batch(st, zero, 40)
+    aux = env.plane_pack(st)
+    override = {p: (aux.tox[i], aux.toy[i]) for i, p in enumerate(env._ground_parts)}
+    return tb._to_soa(st.bodies), override
+
+
 def tie_solve_case(env, device="cpu"):
     """The clamp-tie case of the solve, on the lander world at B=1: every
     body at rest at its spawn pose and one active lane, lane 4 (the hull
@@ -235,9 +257,20 @@ _PAIRS = np.float32([[-0.6, -0.039], [-0.6, 0.039], [-0.2, -0.039], [-0.2, 0.039
                      [0.2, -0.039], [0.2, 0.039], [0.96, -0.2], [0.96, 0.2]])
 
 
+def _pair_grid(n):
+    """A layout of n balls for a table with more than 8: touching pairs
+    0.07 apart (0.01 deep) on a 6 by 4 grid of centres 0.3 and 0.2 apart,
+    clear of each other and of the cushions."""
+    k = np.arange(n) // 2
+    x = -0.75 + 0.3 * (k % 6)
+    y = -0.3 + 0.2 * (k // 6) + np.where(np.arange(n) % 2, 0.035, -0.035)
+    return np.stack([x, y], axis=1).astype(np.float32)
+
+
 def billiards_pairs_state(env, B, seed=3):
     """Billiards worlds where each ball touches one other ball or a cushion,
-    no more: the layout above with numpy-seeded jitter (0.003), every ball
+    no more: the layout above (a table of more than 8 balls: ``_pair_grid``,
+    ball-ball pairs only) with numpy-seeded jitter (0.003), every ball
     moving at (0.3, 0.2), so that a touching pair's relative velocity is
     exactly 0 and a ball's against a cushion far from 0.  Unlike the pile
     of :func:`overlap_state`, no lane then sits near a kink (a clamp or a
@@ -249,9 +282,10 @@ def billiards_pairs_state(env, B, seed=3):
     keys = rng.integers(0, 2**32, (B, 2), dtype=np.uint32)
     s = tb._to_soa(env.reset_fn_batch(torch.from_numpy(keys.astype(np.int64)).to(dev)).bodies)
     n = env.n_balls
+    layout = _PAIRS if n <= len(_PAIRS) else _pair_grid(n)
     x, y = s.px.cpu().numpy(), s.py.cpu().numpy()
-    x[:n] = _PAIRS[:n, 0:1] + rng.uniform(-0.003, 0.003, (n, B))
-    y[:n] = _PAIRS[:n, 1:2] + rng.uniform(-0.003, 0.003, (n, B))
+    x[:n] = layout[:n, 0:1] + rng.uniform(-0.003, 0.003, (n, B))
+    y[:n] = layout[:n, 1:2] + rng.uniform(-0.003, 0.003, (n, B))
     v = np.zeros((2,) + x.shape, np.float32)
     v[0, :n], v[1, :n] = 0.3, 0.2
 
