@@ -42,11 +42,11 @@ the card agrees with the same run on the CPU:
   and the gradient of ``crate_kick_loss`` through 100 steps (the reverse
   kernels); and the JAX tests' mixed and area worlds on the split step.
 
-The two reverse passes run one warp per world, several worlds a block
-(``contact_solver.BWD_WORLDS_PER_BLOCK``); phase 3 holds them to the bit
+All four kernels run one warp per world, several worlds a block
+(``contact_solver.WORLDS_PER_BLOCK``); phase 3 holds each to the bit
 across two launches and across plans of 2, 4 and 8 worlds a block, times
-each plan on the crate pile, and holds them to their plain VJPs on a
-ragged batch (B - 1 worlds) and, for the solver's, on billiards48 (52
+each plan on the crate pile, and holds them to their plain versions on a
+ragged batch (B - 1 worlds) and, for the solver's two, on billiards48 (52
 bodies, more than a warp's threads; 1,320 lanes).
 
 It prints the card's name and power limit, the timings, one JSON line of
@@ -469,10 +469,10 @@ def circle_solves(gpu):
 
 
 def planes_err(label, got, want, bar=ATOL):
-    """The largest difference over the planes of two ``_SoA``s; fail on a
-    non-finite value or beyond ``bar``."""
+    """The largest difference over the planes of two ``_SoA``s (or tuples of
+    planes); fail on a non-finite value or beyond ``bar``."""
     err = 0.0
-    for f, a, b in zip(got._fields, got, want):
+    for f, a, b in zip(getattr(got, "_fields", range(len(got))), got, want):
         d = (a - b).abs().max().item()
         check(np.isfinite(d) and d <= bar, f"{label}: {f} differs by {d}")
         err = max(err, d)
@@ -1109,23 +1109,37 @@ def crate_kernels(gpu):
     return out
 
 
-PLANS = (2, 4, 8)  # worlds a block the reverse passes are timed at
+PLANS = (2, 4, 8)  # worlds a block the four kernels are timed at
 B48 = 256  # billiards48's batch in phase 3
 
 
-def reverse_plans(gpu):
-    """Phase 3 for the two reverse passes' launch plan (one warp per world,
-    ``contact_solver.BWD_WORLDS_PER_BLOCK`` worlds a block): on the crate
-    pile at B, two launches on the same inputs equal to the bit, and each
-    plan of PLANS giving the same bits, timed in turns; at B - 1 worlds (a
-    ragged last block) both against their plain VJPs at the bar; and the
-    solver reverse pass on billiards48 at B48 (52 bodies, more than a warp's
-    threads, and C=1320 lanes): its pairs state at the bar, its overlap pile
-    (lanes at kinks, where two float32 VJPs differ) as a float64 reading.
-    Returns ``{kernel: results}``."""
+def hold_fwd(label, got, want):
+    """``planes_err`` of a forward kernel's body planes against its plain
+    version's, where both may end with the fused step's flags, which must
+    be identical."""
+    if got[-1].dtype == torch.bool:
+        check(torch.equal(got[-1], want[-1]),
+              f"{label}: {int((got[-1] != want[-1]).sum())} active flags differ")
+        got, want = got[:-1], want[:-1]
+    return planes_err(label, got, want)
+
+
+def launch_plans(gpu):
+    """Phase 3 for the four kernels' launch plan (one warp per world,
+    ``contact_solver.WORLDS_PER_BLOCK`` worlds a block): on the crate pile
+    at B, two launches on the same inputs equal to the bit, and each plan of
+    PLANS giving the same bits, timed in turns; at B - 1 worlds (a ragged
+    last block) the forwards against their plain versions (body planes
+    within ATOL, flags identical) and the reverse passes against their
+    plain VJPs at the bar; and on billiards48 at B48 (52 bodies, more than a
+    warp's threads, and C=1320 lanes, whose solve keeps its lane fields in
+    scratch): the solve against its plain version on its pairs state and
+    its overlap pile, and the solver reverse pass on its pairs state at the
+    bar and on its pile (lanes at kinks, where two float32 VJPs differ) as
+    a float64 reading.  Returns ``{kernel: results}``."""
     from parallax_tpu_torch.engine.batched import collide_batched, integrate_bm
     from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
-    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from parallax_tpu_torch.ops import _build, contact_solver, fused_step
     from torch_scenarios import (billiards_pairs_state, cotangents, crate_overlap_state,
                                  crate_world, overlap_state)
 
@@ -1140,6 +1154,13 @@ def reverse_plans(gpu):
         cot = cotangents(wf.n_bodies, batch, 5, dev)
         si, _ = integrate_bm(ws, s)
         con = collide_batched(ws, si)
+
+        def solve_fwd(solve=contact_solver.solve_contacts):
+            return tuple(solve(ws, si, con, *args))
+
+        def fused_fwd(step=fused_step.physics_core_fused):
+            out, con_ = step(wf, s)
+            return (*out, con_.active)
 
         def solve():
             g = contact_solver.solve_contacts_bwd(ws, si, con, cot, *args)
@@ -1157,10 +1178,16 @@ def reverse_plans(gpu):
             g = fused_step.fused_step_bwd_plain(wf, s, None, cot)
             return (*g[0], *g[1:])
 
-        return {"contact_solve_bwd": (solve, solve_plain), "fused_step_bwd": (fused, fused_plain)}
+        return {
+            "contact_solve_fwd": (solve_fwd,
+                                  lambda: solve_fwd(contact_solver.solve_contacts_plain)),
+            "fused_step_fwd": (fused_fwd, lambda: fused_fwd(fused_step.fused_step_plain)),
+            "contact_solve_bwd": (solve, solve_plain),
+            "fused_step_bwd": (fused, fused_plain),
+        }
 
     out = {}
-    default = contact_solver.BWD_WORLDS_PER_BLOCK
+    default = contact_solver.WORLDS_PER_BLOCK
     for name, (fn, _) in calls(B).items():
         first, again = fn(), fn()
         torch.cuda.synchronize()
@@ -1168,14 +1195,14 @@ def reverse_plans(gpu):
               f"{name}: two launches on the same inputs differ")
         plans = {}
         for w in PLANS:
-            contact_solver.BWD_WORLDS_PER_BLOCK = w
+            contact_solver.WORLDS_PER_BLOCK = w
             got = fn()
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(first, got)),
                   f"{name}: {w} worlds a block change the bits")
             cuda_ms(fn, 2)
             plans[w] = min(cuda_ms(fn, 5) for _ in range(2))
-        contact_solver.BWD_WORLDS_PER_BLOCK = default
+        contact_solver.WORLDS_PER_BLOCK = default
         print(f"[kernel] {name} on the crate pile at B={B}: two launches equal to the bit, and "
               f"so are the plans of {list(PLANS)} worlds a block (default {default})")
         print(f"[time] {name} per call on the crate pile at B={B} by worlds a block: "
@@ -1185,18 +1212,33 @@ def reverse_plans(gpu):
     for name, (fn, plain) in calls(B - 1).items():
         got, want = fn(), plain()
         torch.cuda.synchronize()
-        err, share = hold_vjp(f"{name} at B={B - 1}", got, want)
-        print(f"[kernel] {name} vs plain VJP on the crate pile at B={B - 1} (a ragged last "
-              f"block): max |diff| {err:.3e}, {share:.3f} of the bar")
+        if name.endswith("_fwd"):
+            err = hold_fwd(f"{name} at B={B - 1}", got, want)
+            print(f"[kernel] {name} vs plain on the crate pile at B={B - 1} (a ragged last "
+                  f"block): max |diff| {err:.3e} <= {ATOL}"
+                  + (", flags identical" if name == "fused_step_fwd" else ""))
+        else:
+            err, share = hold_vjp(f"{name} at B={B - 1}", got, want)
+            print(f"[kernel] {name} vs plain VJP on the crate pile at B={B - 1} (a ragged last "
+                  f"block): max |diff| {err:.3e}, {share:.3f} of the bar")
         out[name]["ragged_max_abs_err"] = err
 
     env = Billiards(BilliardsConfig(n_object=47))
     w, c = env.world, env.world.config
     b_args = (c.solver_iterations, c.position_iterations, c.dt, c.contact)
     cot = cotangents(w.n_bodies, B48, 5, dev)
+    in_smem, w48 = contact_solver.solve_plan(_build.load(), w.table.n_contacts, w.n_bodies)
+    check(not in_smem, "billiards48's solve: its lane fields should not fit shared memory")
     for label, s in (("pairs", billiards_pairs_state(env, B48)),
                      ("pile", overlap_state(env, B48, 3, *CIRCLE_OVERLAP["billiards48"]))):
         con = collide_batched(w, s)
+        err = hold_fwd(f"contact_solve_fwd on billiards48's {label} state",
+                       tuple(contact_solver.solve_contacts(w, s, con, *b_args)),
+                       tuple(contact_solver.solve_contacts_plain(w, s, con, *b_args)))
+        print(f"[kernel] contact_solve_fwd vs plain on billiards48's {label} state at B={B48} "
+              f"({w48} worlds a block, lane fields in scratch): max |diff| {err:.3e} <= {ATOL}")
+        out["contact_solve_fwd"][f"billiards48_{label}"] = {"max_abs_err": err,
+                                                             "worlds_per_block": w48}
         got = contact_solver.solve_contacts_bwd(w, s, con, cot, *b_args)
         want = contact_solver.solve_contacts_bwd_plain(w, s, con, cot, *b_args)
         torch.cuda.synchronize()
@@ -1602,8 +1644,8 @@ def main():
     rc = robocup_kernels(env_b, gpu)
     lap("phase 3 on the crate pile starts")
     crates = crate_kernels(gpu)
-    lap("phase 3 on the reverse passes' launch plan starts")
-    plans = reverse_plans(gpu)
+    lap("phase 3 on the kernels' launch plan starts")
+    plans = launch_plans(gpu)
 
     lap("phase 4 starts")
     # -- phase 4: the rollout path ---------------------------------------------------
@@ -1847,6 +1889,7 @@ def main():
             "robocup": {"launches": rc_paths["robocup split"][1][0], **rc["solve"]},
             "crates": {"launches": crate_rates["split"][1][0], **crates["crates"]["solve"]},
             "mixed": crates["mixed"]["solve"],
+            **plans["contact_solve_fwd"],
         },
         {
             "name": "contact_solve_bwd",
@@ -1898,6 +1941,7 @@ def main():
             "robocup": {"launches": rc_paths["robocup fused"][1][1],
                         **{k: v for k, v in rc["fwd"].items() if k != "active"}},
             "crates": {"launches": crate_rates["fused"][1][1], **crates["fwd"]},
+            **plans["fused_step_fwd"],
         },
         {
             "name": "fused_step_bwd",

@@ -17,9 +17,9 @@
 // passes nothing into the branch it did not take, and a masked (inactive)
 // lane takes nothing.
 //
-// The walk (Walk, contact_solver_bwd.cuh): (a) the warp recomputes its
-// world's forward from the primal inputs, lane for lane the forward
-// kernel's arithmetic, and keeps a tape: the per-lane setup fields, the
+// The walk (Walk<true>, solver_walk.cuh): (a) the warp recomputes its
+// world's forward from the primal inputs with the forward kernel's own
+// code, and keeps a tape: the per-lane setup fields, the
 // normal, friction and position impulses after every pass, and the body
 // velocities before every pass.  (b) It then walks the passes in reverse:
 // the joints, last joint first (each recomputes the velocities it saw from
@@ -47,8 +47,8 @@
 // pass runs its lanes over the warp's threads (a 2x2 block at its lead
 // lane; a pass's lanes read one velocity snapshot, so they are
 // independent), then its bodies over the threads, each thread summing its
-// bodies' lane terms from shared memory in lane order (the serial
-// forward's order, so the recompute is the forward's to the bit and every
+// bodies' lane terms from shared memory in lane order (the forward
+// kernel's order, so the recompute is the forward's to the bit and every
 // launch gives the same bits; no float atomics); the joints, Gauss-Seidel,
 // run on one thread.  A world's body arrays (velocities, their cotangents,
 // snapshots, poses) and each lane's terms of a pass live in dynamic
@@ -57,7 +57,7 @@
 // index fastest within a field, so a warp's accesses to it coalesce.
 // Built, like the other sources, without fast math and with --fmad=false.
 
-#include "contact_solver_bwd.cuh"
+#include "solver_walk.cuh"
 
 namespace {
 
@@ -89,7 +89,7 @@ contact_solve_bwd_kernel(const SolveOps o, const BwdPlanes pl, float* scratch,
       Rows{pl.gpx + b, Bs}, Rows{pl.gpy + b, Bs}, Rows{pl.gvx + b, Bs},
       Rows{pl.gvy + b, Bs}, Rows{pl.gang + b, Bs}, Rows{pl.gom + b, Bs},
       pl.dpen_x + b, pl.dpen_y + b, pl.dpt_x + b, pl.dpt_y + b, Bs};
-  Walk w(o, io, scratch + (size_t)b * rows,
+  Walk<true> w(o, io, scratch + (size_t)b * rows,
          smem + warp * WorldSmem(o.C, o.n).words, threadIdx.x % LANES);
   w.run();
   // the cotangents of the six input body planes

@@ -1,4 +1,4 @@
-// The whole physics step of a world, one CUDA thread per world.
+// The whole physics step of a world, one warp per world.
 //
 // Replaces parallax_tpu/ops/pallas_step.py:_step_kernel (l.473: the math
 // of step_arrays, the SAT of _pp_manifold_arrays, the circle and box lanes
@@ -26,32 +26,35 @@
 //   * every pair writes from its first lane on, which the host takes from
 //     the pair table (groups concatenate in table order), so the solver's
 //     partner table lines up;
-//   * the contact solve and the joints: solve_world of contact_solver.cuh,
-//     the solver kernel's own code, so on the same contact planes the two
-//     agree to the bit.
+//   * the contact solve and the joints: the solver walk of
+//     solver_walk.cuh (Walk<false>), the solver kernel's own code, so on
+//     the same contact planes the two agree to the bit.
 //
 // It writes the six body planes and the [C, B] active flags.  The contact
-// geometry stays inside, as on the TPU (pallas_step.py:760-766): each pair
-// writes its lanes' pen_x, pen_y, pt_x, pt_y into a wrapper-allocated
-// scratch [4, C, B] as it is found, and the solve reads them from there.
-// The integrated state goes straight into the output planes, which the
-// solve then reads as its input (solve_world allows it).
+// geometry stays inside, as on the TPU (pallas_step.py:760-766).
 //
 // What bounds it: at the lander's shapes (24 pairs, C=48 lanes, n=4
 // bodies, B=8192 worlds) a call reads the six [n,B] body planes and 28
 // terrain rows of x and y and writes six [n,B] planes and the flags, about
 // 3 MB, 1 us at 3.35 TB/s; the SAT does about 750 float32 operations a
 // pair whether or not it touches, about 150 M a call, 2.2 us at 67
-// TFLOP/s, so operations bound it.  The design is the simple one: one
-// thread per world (64 blocks of 128 threads at B=8192, half the SMs), the
-// world's vertices in per-thread arrays, each pair's axes in per-thread
-// arrays, body planes and lanes addressed [row * B + b] so that
-// neighbouring threads touch neighbouring addresses.  An analytic lane
-// costs about 45 (cc), 60 (cb), 35 (area_cb) or 30 (bb) float32
-// operations; billiards (28 cc and 32 cb pairs, C=60), RoboCup (21 cc, 42
-// cb and 7 area_cb pairs, C=70) and the crate pile (3 cc, 33 cb and 52 bb
-// pairs, C=88) spend most of their time in the solve.  Spreading a world's pairs
-// over a warp is later work.
+// TFLOP/s, so operations bound it.  An analytic lane costs about 45 (cc),
+// 60 (cb), 35 (area_cb) or 30 (bb) float32 operations; billiards (28 cc
+// and 32 cb pairs, C=60), RoboCup (21 cc, 42 cb and 7 area_cb pairs, C=70)
+// and the crate pile (3 cc, 33 cb and 52 bb pairs, C=88) spend most of
+// their time in the solve, a chain of dependent passes that latency
+// bounds.  The design spreads both phases over a warp: one warp per world,
+// W worlds a block (the wrapper's plan, at most 8).  First
+// (integrate_and_collide, fused_step.cuh, which the reverse pass runs too)
+// the bodies over the warp's threads, then the parts (their vertices), then
+// the pairs (their lanes); the integrated state, the vertices, the lanes'
+// pen/pt [4, C] and flags sit in the world's dynamic shared memory.  The
+// lane threads write the flags out.  Then the solver walk solves on those
+// planes and the integrated state, with the lane fields and impulses in
+// shared memory too ([NUM_FIELDS, C]: the 16 parts bound C by 240 and n by
+// 64, so a world never takes more than about 35 KB), and the body threads
+// write the six planes.  Per-body sums are taken in lane order, so every
+// launch and every plan gives the same bits.
 //
 // Build without --use_fast_math and with --fmad=false, and keep the plain
 // version's order of operations: the plain torch ops round every product
@@ -60,36 +63,76 @@
 // best), a reference edge needs al > best, A is the reference when its
 // score is >=, a circle-box, box-box or area face tie goes to the
 // earliest side; min and max propagate NaN (maxp, minp).
-//
-// The integration, the vertices, the SAT and the analytic lanes live in
-// fused_step.cuh, which the reverse pass (fused_step_bwd.cu) shares.
 
 #include "fused_step.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(THREADS)
-fused_step_kernel(const Args args, const StepArgs st) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= args.B) return;
-  const size_t B = args.B;
-  // integration and gravity, into the output planes the solve reads
-  float qx[MAX_BODIES], qy[MAX_BODIES], qc[MAX_BODIES], qs[MAX_BODIES];
-  integrate_world(args, st, b, qx, qy, qc, qs);
-  float wx[MAX_PARTS * MAX_V], wy[MAX_PARTS * MAX_V];
-  world_vertices(st, B, b, qx, qy, qc, qs, wx, wy);
-  pair_geometry(st, args.C, B, b, wx, wy);
-  solve_world(args, b);
+// Offsets in one world's shared memory, in words of sizeof(float): the
+// state both fused kernels keep (StepSmem), then the forward's contact
+// planes and the solver walk's lane fields.
+struct FwdSmem {
+  int state, qc, qs, wx, wy, geo, flags, fields, words;
+  __host__ __device__ FwdSmem(int C, int n, int P) {
+    const StepSmem m(C, n, P);
+    state = m.state;
+    qc = m.qc;
+    qs = m.qs;
+    wx = m.wx;
+    wy = m.wy;
+    int r = m.words;
+    geo = r;  // the lanes' pen_x, pen_y, pt_x, pt_y [4, C]
+    r += 4 * C;
+    flags = r;  // their active flags, uint8 [C]
+    r += byte_words(C);
+    fields = r;  // the walk's lane fields and impulses [NUM_FIELDS, C]
+    r += NUM_FIELDS * C;
+    words = r;
+  }
+};
+
+__global__ void __launch_bounds__(LANES * MAX_WORLDS_PER_BLOCK)
+fused_step_kernel(const SolveOps o, const StepArgs st, const BodyOut out,
+                  uint8_t* active, int B, int W) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const int b = blockIdx.x * W + warp;
+  if (b >= B) return;
+  const size_t Bs = B;
+  const int C = o.C, n = o.n;
+  const FwdSmem M(C, n, st.P);
+  float* s = smem + warp * M.words;
+  float* state = s + M.state;
+  float* geo = s + M.geo;
+  uint8_t* flags = reinterpret_cast<uint8_t*>(s + M.flags);
+  integrate_and_collide(st, o.movable, o.dt, n, C, Bs, b, lane, state,
+                        s + M.qc, s + M.qs, s + M.wx, s + M.wy, geo, flags);
+  for (int c = lane; c < C; c += LANES) active[c * Bs + b] = flags[c];
+  const WorldIO io{
+      Rows{geo, 1}, Rows{geo + C, 1}, Rows{geo + 2 * C, 1},
+      Rows{geo + 3 * C, 1},
+      flags, 1,
+      Rows{state, 1}, Rows{state + n, 1}, Rows{state + 2 * n, 1},
+      Rows{state + 3 * n, 1}, Rows{state + 4 * n, 1}, Rows{state + 5 * n, 1}};
+  Walk<false> w(o, io, s + M.fields, s, lane);
+  w.solve();
+  w.write(out, Bs, b);
 }
 
 }  // namespace
 
+// Bytes of dynamic shared memory one world of the step takes.
+extern "C" int fused_step_fwd_smem_bytes(int C, int n, int P) {
+  return FwdSmem(C, n, P).words * (int)sizeof(float);
+}
+
 // Launches the step on `stream` and returns cudaGetLastError().  Body
 // planes are float32 [n, B], the terrain planes [k * V, B], row-major and
-// contiguous; active is uint8 [C, B]; geo is [4, C, B] and scratch
-// [NUM_FIELDS, C, B]; pair_i is int32 [npairs, PAIR_COLS] and pair_f
-// float32 [npairs, 2]; lanes is the lanes the pairs' kinds give, which must
-// equal C.  The solver operands are contact_solve_fwd's.
+// contiguous; active is uint8 [C, B]; pair_i is int32 [npairs, PAIR_COLS]
+// and pair_f float32 [npairs, 2]; lanes is the lanes the pairs' kinds give,
+// which must equal C.  The solver operands and body_lanes are
+// contact_solve_fwd's; worlds_per_block (1 to 8) worlds share a block, one
+// warp each.
 extern "C" int fused_step_fwd(
     const float* px, const float* py, const float* vx, const float* vy,
     const float* ang, const float* om, const float* tx, const float* ty,
@@ -100,30 +143,35 @@ extern "C" int fused_step_fwd(
     const float* lane_const, const int32_t* movable,
     const float* body_im, const float* body_ii,
     const int32_t* joint_body, const float* joint_f,
-    float* geo, float* scratch,
+    const int32_t* body_lanes,
     int P, int npairs, int lanes, int V, int override_bits, int symplectic,
     float gdx, float gdy,
     int B, int C, int n, int J, int iterations, int position_iterations,
     float dt, float baumgarte, float slop, float baumgarte_dt,
-    float max_bias, int has_max_bias, void* stream) {
+    float max_bias, int has_max_bias, int worlds_per_block, void* stream) {
+  const int W = worlds_per_block;
+  const size_t smem = (size_t)W * FwdSmem(C, n, P).words * sizeof(float);
   // lanes: what the pairs' kinds give, two a pp pair and one any other
   if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C != lanes ||
-      lanes < npairs || lanes > 2 * npairs || B <= 0) {
+      lanes < npairs || lanes > 2 * npairs || B <= 0 || W < 1 ||
+      W > MAX_WORLDS_PER_BLOCK || smem > SMEM_LIMIT) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t plane = (size_t)C * B;
-  // the solve reads the integrated state from the output planes
-  Args args{geo, geo + plane, geo + 2 * plane, geo + 3 * plane, active,
-            opx, opy, ovx, ovy, oang, oom,
-            opx, opy, ovx, ovy, oang, oom,
-            body_a, body_b, partner, lane_const, movable,
-            body_im, body_ii, joint_body, joint_f, scratch,
-            B, C, n, J, iterations, position_iterations,
-            dt, baumgarte, slop, baumgarte_dt, max_bias, has_max_bias};
-  StepArgs st{px, py, vx, vy, ang, om, tx, ty, part_i, part_lv, pair_i, pair_f,
-              geo, active, P, npairs, V, override_bits, symplectic,
-              gdx, gdy};
-  const int blocks = (B + THREADS - 1) / THREADS;
-  fused_step_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(args, st);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const SolveOps ops{body_a, body_b, partner, lane_const, movable,
+                     body_im, body_ii, joint_body, joint_f, body_lanes,
+                     C, n, J, iterations, position_iterations,
+                     dt, baumgarte, slop, baumgarte_dt, max_bias, has_max_bias};
+  const StepArgs st{px, py, vx, vy, ang, om, tx, ty, part_i, part_lv, pair_i,
+                    pair_f, P, npairs, V, override_bits, symplectic, gdx, gdy};
+  const BodyOut out{opx, opy, ovx, ovy, oang, oom};
+  const int blocks = (B + W - 1) / W, threads = W * LANES;
+  fused_step_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      ops, st, out, active, B, W);
   return (int)cudaGetLastError();
 }

@@ -2,19 +2,19 @@
 // (fused_step_bwd.cu): integration and gravity of a body, the world-frame
 // vertices of a part, and a pair's lanes (a polygon pair's SAT and
 // reference-face clip; a circle-circle, circle-box, box-box or
-// circle-in-area-box pair's analytic lane), each for one thread.  The
-// forward walks them over a world on one thread (integrate_world,
-// world_vertices, pair_geometry); the reverse pass spreads them over a
-// warp and recomputes the step with exactly this code, so its decisions
-// (the SAT's best axis, sign, reference edge, clip cuts and kept points;
-// an analytic lane's branches) are the forward kernel's to the bit.
-// See fused_step.cu for what it computes and the rules it follows.
+// circle-in-area-box pair's analytic lane), each for one thread, and the
+// first phase of both kernels, which spreads them over a world's warp
+// (integrate_and_collide).  The reverse pass recomputes the step with
+// exactly this code, so its decisions (the SAT's best axis, sign,
+// reference edge, clip cuts and kept points; an analytic lane's branches)
+// are the forward kernel's to the bit.  See fused_step.cu for what it
+// computes and the rules it follows.
 
 #pragma once
 
 #include <math.h>
 
-#include "contact_solver.cuh"
+#include "solver_walk.cuh"
 
 namespace {
 
@@ -37,8 +37,6 @@ struct StepArgs {
   const int32_t* pair_i;  // parts a, b; trimmed Va, Vb; edge-mask bits;
                           // first lane; kind
   const float* pair_f;  // [npairs, 2]: radii of parts a and b
-  float* geo;  // [4, C, B] scratch: pen_x, pen_y, pt_x, pt_y
-  uint8_t* active;  // [C, B]
   int P, npairs, V, override_bits, symplectic;
   float gdx, gdy;  // gravity times dt, per component
 };
@@ -408,29 +406,6 @@ __device__ void integrate_body(const StepArgs& st, size_t k, bool movable,
   out[5] = w;
 }
 
-// integration and gravity of world b's bodies, written to the planes
-// args.o*; the poses stay in qx, qy and the cosine and sine of the angle,
-// for the vertices
-__device__ void integrate_world(const Args& args, const StepArgs& st, int b,
-                                float* qx, float* qy, float* qc, float* qs) {
-  const size_t B = args.B;
-  for (int i = 0; i < args.n; ++i) {
-    const size_t k = i * B + b;
-    float o[6];
-    integrate_body(st, k, args.movable[i] != 0, args.dt, o);
-    args.opx[k] = o[0];
-    args.opy[k] = o[1];
-    args.ovx[k] = o[2];
-    args.ovy[k] = o[3];
-    args.oang[k] = o[4];
-    args.oom[k] = o[5];
-    qx[i] = o[0];
-    qy[i] = o[1];
-    qc[i] = cosf(o[4]);
-    qs[i] = sinf(o[4]);
-  }
-}
-
 // world-frame vertices of part p into px, py [MAX_V]
 __device__ void part_vertices(const StepArgs& st, size_t B, int b, int p,
                               const float* qx, const float* qy,
@@ -460,16 +435,6 @@ __device__ void part_vertices(const StepArgs& st, size_t B, int b, int p,
       px[v] = lx + x;
       py[v] = ly + y;
     }
-  }
-}
-
-// world-frame vertices of every part into wx, wy [MAX_PARTS * MAX_V]
-__device__ void world_vertices(const StepArgs& st, size_t B, int b,
-                               const float* qx, const float* qy,
-                               const float* qc, const float* qs, float* wx,
-                               float* wy) {
-  for (int p = 0; p < st.P; ++p) {
-    part_vertices(st, B, b, p, qx, qy, qc, qs, wx + p * MAX_V, wy + p * MAX_V);
   }
 }
 
@@ -523,23 +488,67 @@ __device__ int pair_lanes(const StepArgs& st, int q, const float* wx,
   }
 }
 
-// every pair's lanes into st.geo and st.active, from its first lane on
-__device__ void pair_geometry(const StepArgs& st, int C, size_t B, int b,
-                              const float* wx, const float* wy) {
-  const size_t plane = (size_t)C * B;
-  for (int q = 0; q < st.npairs; ++q) {
+// Offsets in one world's shared memory, in words of sizeof(float), that
+// both fused kernels keep: the solver walk's (WorldSmem), then the
+// integrated state and the vertices.  Each kernel adds its own after
+// `words`.
+struct StepSmem {
+  int state, qc, qs, wx, wy, words;
+  __host__ __device__ StepSmem(int C, int n, int P) {
+    int r = WorldSmem(C, n).words;
+    state = r;  // the integrated x, y, vx, vy, angle, omega [6, n]
+    r += 6 * n;
+    qc = r;  // the cosines and sines of the integrated angles [n]
+    r += n;
+    qs = r;
+    r += n;
+    wx = r;  // the world-frame vertices [P, MAX_V]
+    r += P * MAX_V;
+    wy = r;
+    r += P * MAX_V;
+    words = r;
+  }
+};
+
+// The first phase of both fused kernels, on world b's warp (this thread is
+// its `lane`): integration and gravity by body into state [6, n] with the
+// cosines and sines qc, qs [n]; the world-frame vertices by part into wx,
+// wy [P, MAX_V]; each pair's lanes by pair, from its first lane on, into
+// geo [4, C] (pen_x, pen_y, pt_x, pt_y) and flags [C].  Each pair writes
+// its own lanes and each body and part its own rows, so no two threads
+// write one word.
+__device__ void integrate_and_collide(const StepArgs& st,
+                                      const int32_t* movable, float dt,
+                                      int n, int C, size_t B, int b,
+                                      int lane, float* state, float* qc,
+                                      float* qs, float* wx, float* wy,
+                                      float* geo, uint8_t* flags) {
+  for (int i = lane; i < n; i += LANES) {
+    float q[6];
+    integrate_body(st, i * B + b, movable[i] != 0, dt, q);
+    for (int m = 0; m < 6; ++m) state[m * n + i] = q[m];
+    qc[i] = cosf(q[4]);
+    qs[i] = sinf(q[4]);
+  }
+  __syncwarp();
+  for (int p = lane; p < st.P; p += LANES) {
+    part_vertices(st, B, b, p, state, state + n, qc, qs, wx + p * MAX_V,
+                  wy + p * MAX_V);
+  }
+  __syncwarp();
+  for (int q = lane; q < st.npairs; q += LANES) {
     Lane l[2];
     const int k = pair_lanes(st, q, wx, wy, l);
-    const size_t i0 = (size_t)st.pair_i[q * PAIR_COLS + Q_LANE] * B + b;
+    const int c = st.pair_i[q * PAIR_COLS + Q_LANE];
     for (int j = 0; j < k; ++j) {
-      const size_t i = i0 + j * B;
-      st.geo[i] = l[j].pen_x;
-      st.geo[plane + i] = l[j].pen_y;
-      st.geo[2 * plane + i] = l[j].pt_x;
-      st.geo[3 * plane + i] = l[j].pt_y;
-      st.active[i] = l[j].active;
+      geo[c + j] = l[j].pen_x;
+      geo[C + c + j] = l[j].pen_y;
+      geo[2 * C + c + j] = l[j].pt_x;
+      geo[3 * C + c + j] = l[j].pt_y;
+      flags[c + j] = l[j].active;
     }
   }
+  __syncwarp();
 }
 
 }  // namespace

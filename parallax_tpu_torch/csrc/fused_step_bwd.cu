@@ -28,14 +28,14 @@
 // cotangent.  Per world, in order:
 //
 //   1. Recompute: integration and gravity, the world-frame vertices and
-//      every pair's SAT and clip, with fused_step.cuh's integrate_body,
-//      part_vertices and pair_lanes, the forward kernel's own code, so
+//      every pair's SAT and clip, with fused_step.cuh's
+//      integrate_and_collide, the forward kernel's own first phase, so
 //      every decision is the forward's to the bit.  The integrated state
 //      stays in shared memory; the contact planes and the flags go to the
 //      world's tape.
-//   2. The solver's reverse pass: the warp walk (Walk) of
-//      contact_solver_bwd.cuh, the solver reverse kernel's own code, on
-//      those planes.  It yields the cotangents of the integrated state and
+//   2. The solver's reverse pass: the warp walk (Walk<true>) of
+//      solver_walk.cuh, the solver reverse kernel's own code, on those
+//      planes.  It yields the cotangents of the integrated state and
 //      of each lane's pen_x, pen_y, pt_x, pt_y.
 //   3. The lanes' adjoint, by each pair's kind.  A pair with a nonzero
 //      lane cotangent is run forward again in registers and walked back.
@@ -81,12 +81,11 @@
 // parts and over a part's pairs are taken in the serial kernel's order, so
 // every launch gives the same bits, with no float atomics.  The
 // integrated state, the vertices, their cotangents and the pairs' slots
-// sit in dynamic shared memory beside the solver walk's (StepSmem, sized
+// sit in dynamic shared memory beside the solver walk's (BwdSmem, sized
 // by n, C, the parts and the pairs); a pair's SAT, clip and adjoint run in
 // one thread's registers and stack.  Built, like the other sources,
 // without fast math and with --fmad=false.
 
-#include "contact_solver_bwd.cuh"
 #include "fused_step.cuh"
 
 namespace {
@@ -504,23 +503,19 @@ struct StepTape {
 };
 
 // Offsets in one world's shared memory, in words of sizeof(float): the
-// solver walk's, then the step's own.  R is the most vertex rows a pair
-// reads of one of its parts.
-struct StepSmem {
+// state both fused kernels keep (StepSmem), then the reverse pass's own.
+// R is the most vertex rows a pair reads of one of its parts.
+struct BwdSmem {
   int state, qc, qs, wx, wy, gwx, gwy, slot, words;
-  __host__ __device__ StepSmem(int C, int n, int P, int npairs, int R) {
-    int r = WorldSmem(C, n).words;
-    state = r;  // the integrated x, y, vx, vy, angle, omega [6, n]
-    r += 6 * n;
-    qc = r;  // the cosines and sines of the integrated angles [n]
-    r += n;
-    qs = r;
-    r += n;
-    wx = r;  // the world-frame vertices [P, MAX_V]
-    r += P * MAX_V;
-    wy = r;
-    r += P * MAX_V;
-    gwx = r;  // their cotangents [P, MAX_V]
+  __host__ __device__ BwdSmem(int C, int n, int P, int npairs, int R) {
+    const StepSmem m(C, n, P);
+    state = m.state;
+    qc = m.qc;
+    qs = m.qs;
+    wx = m.wx;
+    wy = m.wy;
+    int r = m.words;
+    gwx = r;  // the vertices' cotangents [P, MAX_V]
     r += P * MAX_V;
     gwy = r;
     r += P * MAX_V;
@@ -599,7 +594,10 @@ __device__ void pair_adjoint(const StepArgs& st, int q, const float* wx,
   }
 }
 
-__global__ void __launch_bounds__(LANES * MAX_WORLDS_PER_BLOCK)
+// at least 2 blocks an SM: at most 128 registers a thread.  Left free, ptxas
+// takes 188 with no spill, one block an SM runs, and the pass is 1.3-1.4x
+// slower (NVIDIA H100 80GB HBM3, tools/bench_kernels.py)
+__global__ void __launch_bounds__(LANES * MAX_WORLDS_PER_BLOCK, 2)
 fused_step_bwd_kernel(const SolveOps o, const StepArgs st, const StepCots cot,
                       const StepGrads out, float* scratch, int rows, int R,
                       int B, int W) {
@@ -609,7 +607,7 @@ fused_step_bwd_kernel(const SolveOps o, const StepArgs st, const StepCots cot,
   if (b >= B) return;
   const size_t Bs = B;
   const int C = o.C, n = o.n;
-  const StepSmem M(C, n, st.P, st.npairs, R);
+  const BwdSmem M(C, n, st.P, st.npairs, R);
   const StepTape L(C, n, o.iterations, o.position_iterations);
   float* s = smem + warp * M.words;
   float* t = scratch + (size_t)b * rows;
@@ -621,34 +619,9 @@ fused_step_bwd_kernel(const SolveOps o, const StepArgs st, const StepCots cot,
   float* dgeo = t + L.dgeo;
   uint8_t* flags = reinterpret_cast<uint8_t*>(t + L.flags);
 
-  // 1. the recompute: integration by body, the vertices by part, the
-  // pairs' lanes by pair
-  for (int i = lane; i < n; i += LANES) {
-    float q[6];
-    integrate_body(st, i * Bs + b, o.movable[i] != 0, o.dt, q);
-    for (int m = 0; m < 6; ++m) state[m * n + i] = q[m];
-    qc[i] = cosf(q[4]);
-    qs[i] = sinf(q[4]);
-  }
-  __syncwarp();
-  for (int p = lane; p < st.P; p += LANES) {
-    part_vertices(st, Bs, b, p, state, state + n, qc, qs, wx + p * MAX_V,
-                  wy + p * MAX_V);
-  }
-  __syncwarp();
-  for (int q = lane; q < st.npairs; q += LANES) {
-    Lane l[2];
-    const int k = pair_lanes(st, q, wx, wy, l);
-    const int c = st.pair_i[q * PAIR_COLS + Q_LANE];
-    for (int j = 0; j < k; ++j) {
-      geo[c + j] = l[j].pen_x;
-      geo[C + c + j] = l[j].pen_y;
-      geo[2 * C + c + j] = l[j].pt_x;
-      geo[3 * C + c + j] = l[j].pt_y;
-      flags[c + j] = l[j].active;
-    }
-  }
-  __syncwarp();
+  // 1. the recompute, the forward kernel's first phase
+  integrate_and_collide(st, o.movable, o.dt, n, C, Bs, b, lane, state, qc, qs,
+                        wx, wy, geo, flags);
 
   // 2. the solver's reverse walk on those planes and the integrated state
   const WorldIO io{
@@ -660,7 +633,7 @@ fused_step_bwd_kernel(const SolveOps o, const StepArgs st, const StepCots cot,
       Rows{cot.gpx + b, Bs}, Rows{cot.gpy + b, Bs}, Rows{cot.gvx + b, Bs},
       Rows{cot.gvy + b, Bs}, Rows{cot.gang + b, Bs}, Rows{cot.gom + b, Bs},
       dgeo, dgeo + C, dgeo + 2 * C, dgeo + 3 * C, 1};
-  Walk w(o, io, t, s, lane);
+  Walk<true> w(o, io, t, s, lane);
   w.run();
 
   // 3. the lanes' adjoint by pair, into its slot; then each part's vertex
@@ -746,7 +719,7 @@ extern "C" int fused_step_bwd_scratch_rows(int C, int n, int iterations,
 // the most vertex rows a pair reads of one of its parts.
 extern "C" int fused_step_bwd_smem_bytes(int C, int n, int P, int npairs,
                                          int R) {
-  return StepSmem(C, n, P, npairs, R).words * (int)sizeof(float);
+  return BwdSmem(C, n, P, npairs, R).words * (int)sizeof(float);
 }
 
 // Launches the reverse pass on `stream` and returns cudaGetLastError().
@@ -777,7 +750,7 @@ extern "C" int fused_step_bwd(
     void* stream) {
   const int W = worlds_per_block, R = pair_rows;
   const size_t smem =
-      (size_t)W * StepSmem(C, n, P, npairs, R).words * sizeof(float);
+      (size_t)W * BwdSmem(C, n, P, npairs, R).words * sizeof(float);
   // lanes: what the pairs' kinds give, two a pp pair and one any other
   if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C != lanes ||
       lanes < npairs || lanes > 2 * npairs || B <= 0 || R < 1 || R > MAX_V ||
@@ -795,8 +768,7 @@ extern "C" int fused_step_bwd(
                      C, n, J, iterations, position_iterations,
                      dt, baumgarte, slop, baumgarte_dt, max_bias, has_max_bias};
   const StepArgs st{px, py, vx, vy, ang, om, tx, ty, part_i, part_lv, pair_i,
-                    pair_f, nullptr, nullptr, P, npairs, V, override_bits,
-                    symplectic, gdx, gdy};
+                    pair_f, P, npairs, V, override_bits, symplectic, gdx, gdy};
   const StepCots cot{gpx, gpy, gvx, gvy, gang, gom};
   const StepGrads out{dpx, dpy, dvx, dvy, dang, dom, dtx, dty};
   const int rows = StepTape(C, n, iterations, position_iterations).rows;

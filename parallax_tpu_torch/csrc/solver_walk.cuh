@@ -1,11 +1,14 @@
-// The solver's reverse pass, one warp per world: the layout of a world's
-// tape and of its shared memory, and the warp walk (Walk).  The
-// reverse-pass kernel (contact_solver_bwd.cu) runs it on the contact planes
-// it is given; the fused step's reverse pass (fused_step_bwd.cu) on the
-// contact planes its recompute leaves in the tape and the integrated state
-// it leaves in shared memory.  WorldIO says where one world's planes are,
-// so Walk reads them from any memory.  See contact_solver_bwd.cu for the
-// rules it follows and the design.
+// The solver's warp walk: one world's contact solve and joints, and their
+// reverse, walked by the threads of one warp, with the layout of a world's
+// shared memory and of its tape.  Both forward kernels run the walk without
+// a tape (Walk<false>): the solver kernel (contact_solver.cu) on the
+// contact planes it is given, the fused step (fused_step.cu) on those its
+// first phase leaves in shared memory.  Both reverse passes run it with a
+// tape (Walk<true>): contact_solver_bwd.cu, and fused_step_bwd.cu on the
+// contact planes its recompute leaves in the tape.  WorldIO says where one
+// world's planes are, so Walk reads them from any memory.  See
+// contact_solver.cu for the forward's design and contact_solver_bwd.cu for
+// the reverse's.
 
 #pragma once
 
@@ -32,7 +35,9 @@ enum GField {
 
 // Offsets in one world's tape, in floats.  The tape is world-major (world
 // b's starts at scratch + b * rows), lane index fastest within a field, so
-// a warp's lane-strided accesses coalesce.
+// a warp's lane-strided accesses coalesce.  A walk without a tape keeps
+// the first NUM_FIELDS * C floats only, Tape(C, n, 1, 1)'s lane fields and
+// one row of each impulse: fields F_NX ... F_PJ, [NUM_FIELDS, C].
 struct Tape {
   int jn, jt, pj, g, v, pv, rows;
   __host__ __device__ Tape(int C, int n, int I, int P) {
@@ -111,9 +116,9 @@ struct Rows {
   __device__ float operator[](int r) const { return p[(size_t)r * rs]; }
 };
 
-// where one world's planes are: the primal contact and body planes, the
-// cotangents of the solve's six outputs, and the contact planes' cotangents
-// it writes
+// where one world's planes are: the primal contact and body planes and,
+// for a reverse pass, the cotangents of the solve's six outputs and the
+// contact planes' cotangents it writes
 struct WorldIO {
   Rows pen_x, pen_y, pt_x, pt_y;  // [C]
   const uint8_t* active;
@@ -122,6 +127,11 @@ struct WorldIO {
   Rows gpx, gpy, gvx, gvy, gang, gom;  // [n]
   float *dpen_x, *dpen_y, *dpt_x, *dpt_y;  // [C], row stride d_rs
   size_t d_rs;
+};
+
+// a forward's six output body planes, row-major [n, B]
+struct BodyOut {
+  float *px, *py, *vx, *vy, *ang, *om;
 };
 
 // torch.maximum's and torch.minimum's backward: half to each at a tie
@@ -153,12 +163,13 @@ __device__ __forceinline__ void inv_bwd(float k, float inv, float g_inv,
 }
 
 // One world's solve and its reverse, walked by the LANES threads of a warp:
-// lane work over the threads by lane, body work by body.  Every
-// per-body sum adds its lanes' terms in lane order, the order of the
-// serial loops of contact_solver.cuh (a manifold's two lanes sit side by
-// side in the contact table, engine/collider.py, so a 2x2 block's terms
-// come in lane order too), so the recompute is the forward kernel's to the
-// bit.
+// lane work over the threads by lane, body work by body.  Every per-body
+// sum adds its lanes' terms in lane order, the order of a serial loop over
+// the lanes (a manifold's two lanes sit side by side in the contact table,
+// engine/collider.py, so a 2x2 block's terms come in lane order too).  So a
+// world's bits depend neither on how its lanes spread over the warp nor on
+// the worlds that share its block, and a reverse pass's recompute is the
+// forward kernel's to the bit.
 //
 // The passes walk a list of lanes.  An inactive lane's impulses are 0 in
 // every pass, so its terms in a pass are products of finite values with 0:
@@ -166,7 +177,15 @@ __device__ __forceinline__ void inv_bwd(float k, float inv, float g_inv,
 // -0).  So a world whose lane fields are finite lists its active lanes
 // only; a world with a non-finite field lists every lane, and a reverse
 // pass whose output cotangents hold a non-finite value walks every lane,
-// as the serial loops do, so that NaN and inf go where they went there.
+// as the serial loop does, so that NaN and inf go where they went there.
+//
+// TAPE: the reverse passes' walk keeps a tape at t (Tape): the lane fields,
+// the impulses after every pass and the velocities before every pass.  The
+// forward kernels' walk (TAPE false) keeps the lane fields and one row of
+// each impulse at t, which each pass updates in place: a lane's impulse is
+// read and written only by the thread that walks it (a 2x2 block's both by
+// its lead's), and no pass reads another lane's.
+template <bool TAPE>
 struct Walk {
   const SolveOps& o;
   const WorldIO& io;
@@ -180,7 +199,8 @@ struct Walk {
   __device__ Walk(const SolveOps& ops, const WorldIO& w, float* tape,
                   float* smem, int thread)
       : o(ops), io(w),
-        T(ops.C, ops.n, ops.iterations, ops.position_iterations),
+        T(ops.C, ops.n, TAPE ? ops.iterations : 1,
+          TAPE ? ops.position_iterations : 1),
         M(ops.C, ops.n), t(tape), s(smem), lane(thread), C(ops.C), n(ops.n) {}
 
   __device__ float* body(int r) { return s + r * n; }
@@ -195,16 +215,24 @@ struct Walk {
 
   __device__ float& f(int field, int c) { return t[field * C + c]; }
   __device__ float& g(int field, int c) { return t[T.g + field * C + c]; }
-  __device__ float& jn_t(int it, int c) { return t[T.jn + it * C + c]; }
-  __device__ float& jt_t(int it, int c) { return t[T.jt + it * C + c]; }
-  __device__ float& pj_t(int k, int c) { return t[T.pj + k * C + c]; }
+  // the impulses after pass it (k): its row of the tape, or the one row
+  __device__ float& jn_t(int it, int c) {
+    return t[T.jn + (TAPE ? it : 0) * C + c];
+  }
+  __device__ float& jt_t(int it, int c) {
+    return t[T.jt + (TAPE ? it : 0) * C + c];
+  }
+  __device__ float& pj_t(int k, int c) {
+    return t[T.pj + (TAPE ? k : 0) * C + c];
+  }
   __device__ float lc(int row, int c) const {
     return o.lane_const[row * C + c];
   }
 
-  // body threads: snapshot k of rows r, r + 1, r + 2 to the tape at base,
-  // or back
+  // body threads: snapshot k of rows r, r + 1, r + 2 to the tape at base
+  // (with a tape), or back
   __device__ void store(int base, int k, int r) {
+    if (!TAPE) return;
     for (int i = lane; i < n; i += LANES) {
       for (int m = 0; m < 3; ++m) {
         t[base + (k * 3 + m) * n + i] = body(r + m)[i];
@@ -234,7 +262,7 @@ struct Walk {
     }
   }
 
-  // ---- the forward, lane by lane (World of contact_solver.cuh) ----------
+  // ---- the forward, lane by lane ----------------------------------------
 
   // relative velocity of lane c along its normal and tangent, the bodies'
   // velocities in rows r, r + 1, r + 2
@@ -258,7 +286,7 @@ struct Walk {
   }
 
   // lane c's terms of its bodies' velocity deltas for the impulse deltas
-  // dj_n, dj_t (World::scatter; a static body's are not gathered)
+  // dj_n, dj_t (a static body's are not gathered)
   __device__ void scatter(int c, float dj_n, float dj_t) {
     float nx = f(F_NX, c), ny = f(F_NY, c);
     float tx = -ny, ty = nx;
@@ -517,8 +545,10 @@ struct Walk {
     om[ib] = om[ib] + (rbx * jy - rby * jx) * ii_b;
   }
 
-  // (a) the forward with its tape: solve_world of contact_solver.cuh up to
-  // the joints, which the reverse replays
+  // the forward up to the joints: the velocities, the setup, the velocity
+  // passes and the position passes integrated into the corrected poses
+  // (rows S_Q*); with a tape, (a) of the reverse passes, which replay the
+  // joints
   __device__ void forward() {
     for (int i = lane; i < n; i += LANES) {
       body(S_VX)[i] = io.vx[i];
@@ -570,6 +600,29 @@ struct Walk {
       }
     }
     __syncwarp();
+  }
+
+  // the whole forward solve: forward(), then the joints on one thread, in
+  // joint order (Gauss-Seidel) on the corrected poses
+  __device__ void solve() {
+    forward();
+    if (lane == 0) {
+      for (int j = 0; j < o.J; ++j) joint(j);
+    }
+    __syncwarp();
+  }
+
+  // body threads: the solve's six output body planes of world b
+  __device__ void write(const BodyOut& out, size_t B, int b) {
+    for (int i = lane; i < n; i += LANES) {
+      const size_t k = i * B + b;
+      out.px[k] = body(S_QX)[i];
+      out.py[k] = body(S_QY)[i];
+      out.vx[k] = body(S_VX)[i];
+      out.vy[k] = body(S_VY)[i];
+      out.ang[k] = body(S_QA)[i];
+      out.om[k] = body(S_OM)[i];
+    }
   }
 
   // ---- the reverse, lane by lane ---------------------------------------

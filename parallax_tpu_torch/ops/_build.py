@@ -120,10 +120,11 @@ _SIGNATURES = {
         + [_P] * 6  # outputs
         + [_P] * 9  # body_a, body_b, partner, lane_const, movable,
         #             body_im, body_ii, joint_body, joint_f
-        + [_P]  # scratch
+        + [_P] * 2  # body_lanes, scratch
         + [_I] * 6  # B, C, n, J, iterations, position_iterations
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
-        + [_I, _P]  # has_max_bias, stream
+        + [_I] * 3  # has_max_bias, fields_in_smem, worlds_per_block
+        + [_P]  # stream
     ),
     "contact_solve_bwd": (
         [_P] * 5  # pen_x, pen_y, pt_x, pt_y, active
@@ -144,12 +145,13 @@ _SIGNATURES = {
         + [_P]  # active (out)
         + [_P] * 4  # part_i, part_lv, pair_i, pair_f
         + [_P] * 9  # the solver operands, as for contact_solve_fwd
-        + [_P] * 2  # geo, scratch
+        + [_P]  # body_lanes
         + [_I] * 6  # P, pairs, lanes, V, override_bits, symplectic
         + [_F] * 2  # gravity x and y times dt
         + [_I] * 6  # B, C, n, J, iterations, position_iterations
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
-        + [_I, _P]  # has_max_bias, stream
+        + [_I] * 2  # has_max_bias, worlds_per_block
+        + [_P]  # stream
     ),
     "fused_step_bwd": (
         [_P] * 6  # px, py, vx, vy, angle, omega
@@ -169,6 +171,8 @@ _SIGNATURES = {
     ),
     "contact_solver_num_fields": [],
     "contact_solver_max_bodies": [],
+    "contact_solver_fwd_smem_bytes": [_I] * 3,  # C, n, fields_in_smem
+    "fused_step_fwd_smem_bytes": [_I] * 3,  # C, n, P
     "contact_solver_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations
     "contact_solver_bwd_smem_bytes": [_I] * 2,  # C, n
     "fused_step_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations

@@ -3,12 +3,13 @@
 ``csrc/contact_solver.cu`` replaces ``parallax_tpu/ops/pallas_solver.py``'s
 ``_solver_kernel``: one launch runs every velocity and position iteration
 of ``engine.batched.solve_contacts_bm`` and then the spring-damper joints
-of ``engine.batched.apply_joints_bm``, one CUDA thread per world.
-``csrc/contact_solver_bwd.cu`` replaces its reverse pass,
-``_solver_bwd_kernel``: it recomputes the forward from the primal inputs
-and returns the cotangents of the body planes and of the contact planes,
-one warp per world with the world's state in shared memory,
-``BWD_WORLDS_PER_BLOCK`` worlds a block (fewer where they would not fit).
+of ``engine.batched.apply_joints_bm``.  ``csrc/contact_solver_bwd.cu``
+replaces its reverse pass, ``_solver_bwd_kernel``: it recomputes the
+forward from the primal inputs and returns the cotangents of the body
+planes and of the contact planes.  Both run the solver walk of
+``csrc/solver_walk.cuh``, one warp per world with the world's state in
+shared memory, ``WORLDS_PER_BLOCK`` worlds a block (fewer where they would
+not fit); so do the fused step's kernels (``ops/fused_step.py``).
 
 :func:`solve_contacts` chooses by the tensors' device and nothing else: on
 CPU tensors it runs :func:`solve_contacts_plain`, and autograd of its
@@ -37,10 +38,13 @@ from parallax_tpu_torch.engine.batched import (
 launches = 0
 bwd_launches = 0
 
-# worlds a block of a reverse-pass kernel walks, one warp each (at most 8)
-BWD_WORLDS_PER_BLOCK = 8
+# worlds a block of each of the four kernels walks, one warp each (at most 8)
+WORLDS_PER_BLOCK = 8
 # dynamic shared memory a block may take on the H100: 227 KB
 SMEM_LIMIT = 232448
+# the solve keeps a world's lane fields in shared memory where this many
+# worlds a block still fit with them, else in scratch (see solve_plan)
+FIELDS_MIN_WORLDS = 4
 
 _CON_PLANES = ("pen_x", "pen_y", "pt_x", "pt_y")
 
@@ -187,11 +191,11 @@ def solver_operands(world, config: ContactSolverConfig) -> SolverOperands:
 
 
 def body_lanes(world) -> torch.Tensor:
-    """Per body, the lanes touching it in lane order, as the reverse-pass
-    kernels sum them: int32 ``[n + 1 + 2C]``, the offsets of each body's
+    """Per body, the lanes touching it in lane order, as the kernels' warp
+    walk sums them: int32 ``[n + 1 + 2C]``, the offsets of each body's
     entries, then the entries ``2 * lane + side`` (side 0: the lane's body
-    A, 1: its body B).  The kernels' per-body sums follow the serial
-    solve's lane order; a 2x2 block adds its lead's terms and then its
+    A, 1: its body B).  The kernels' per-body sums follow a serial loop's
+    lane order; a 2x2 block adds its lead's terms and then its
     partner's, which is lane order only while a manifold's two lanes sit
     side by side, as ``engine/collider.py`` lays them out: anything else
     raises."""
@@ -202,7 +206,7 @@ def body_lanes(world) -> torch.Tensor:
         partner = np.asarray(table.partner, np.int64)
         lanes = np.arange(C)
         if not np.all((partner < 0) | (np.abs(partner - lanes) == 1)):
-            raise ValueError("reverse-pass kernels: a manifold's two lanes must be adjacent")
+            raise ValueError("solver kernels: a manifold's two lanes must be adjacent")
         touch = [[] for _ in range(n)]
         for c, (a, b) in enumerate(zip(table.body_a, table.body_b)):
             touch[a].append(2 * c)
@@ -214,17 +218,29 @@ def body_lanes(world) -> torch.Tensor:
     return world.static(("body_lanes",), build)
 
 
-def bwd_worlds_per_block(per_world: int, kernel: str) -> int:
-    """The worlds a block of a reverse-pass kernel holds: at most
-    ``BWD_WORLDS_PER_BLOCK``, as many as ``SMEM_LIMIT`` leaves room for
-    at ``per_world`` bytes of shared memory each.  A world over the limit
-    alone raises ``ValueError``: the kernel cannot run it."""
+def worlds_per_block(per_world: int, kernel: str) -> int:
+    """The worlds a block of ``kernel`` holds: at most ``WORLDS_PER_BLOCK``,
+    as many as ``SMEM_LIMIT`` leaves room for at ``per_world`` bytes of
+    shared memory each.  A world over the limit alone raises
+    ``ValueError``: the kernel cannot run it."""
     if per_world > SMEM_LIMIT:
         raise ValueError(
             f"{kernel}: one world needs {per_world} bytes of shared memory, over the "
             f"{SMEM_LIMIT} bytes (227 KB) a block may take on the H100"
         )
-    return max(1, min(BWD_WORLDS_PER_BLOCK, SMEM_LIMIT // per_world))
+    return max(1, min(WORLDS_PER_BLOCK, SMEM_LIMIT // per_world))
+
+
+def solve_plan(lib, C: int, n: int) -> tuple:
+    """The solve kernel's launch plan, ``(fields_in_smem, worlds a block)``:
+    a world's lane fields and impulses (``NUM_FIELDS`` x C floats) sit in
+    shared memory beside its body rows where ``FIELDS_MIN_WORLDS`` worlds a
+    block still fit with them (every world of the repo but billiards48:
+    C=1320, 52 bodies), else in the wrapper's scratch."""
+    inside = lib.contact_solver_fwd_smem_bytes(C, n, 1)
+    if SMEM_LIMIT // inside >= FIELDS_MIN_WORLDS:
+        return 1, worlds_per_block(inside, "contact_solve_fwd")
+    return 0, worlds_per_block(lib.contact_solver_fwd_smem_bytes(C, n, 0), "contact_solve_fwd")
 
 
 # ---------------------------------------------------------------------------
@@ -353,8 +369,9 @@ def _ptr(x):
 
 
 def _tail(world, iterations, position_iterations, dt, config, B, C, n, stream, *plan):
-    """The scalar arguments the kernels end with; a reverse pass's ``plan``
-    (its worlds per block) comes before the stream."""
+    """The scalar arguments the kernels end with; the launch ``plan`` (a
+    kernel's worlds per block, and what comes before it) comes before the
+    stream."""
     max_bias = config.baumgarte_max_bias
     return (
         B, C, n, world.joints.n_joints,
@@ -373,16 +390,18 @@ def _solve_cuda(world, s, con, iterations, position_iterations, dt, config):
     lib, ops, C, n, B, stream = _launch_operands(world, s, con, config)
     device = s.px.device
     outs = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
-    scratch = torch.empty(
-        (lib.contact_solver_num_fields(), C, B), dtype=torch.float32, device=device
-    )
+    in_smem, W = solve_plan(lib, C, n)
+    rows = 0 if in_smem else lib.contact_solver_num_fields() * C
+    scratch = torch.empty((B, rows), dtype=torch.float32, device=device)
     err = lib.contact_solve_fwd(
         *(_ptr(getattr(con, k)) for k in (*_CON_PLANES, "active")),
         *(_ptr(x) for x in s),
         *(_ptr(x) for x in outs),
         *(_ptr(x) for x in ops),
+        _ptr(body_lanes(world)),
         _ptr(scratch),
-        *_tail(world, iterations, position_iterations, dt, config, B, C, n, stream),
+        *_tail(world, iterations, position_iterations, dt, config, B, C, n, stream,
+               in_smem, W),
     )
     if err != 0:
         raise RuntimeError(f"contact_solve_fwd launch failed: CUDA error {err}")
@@ -418,7 +437,7 @@ def _solve_bwd_cuda(world, s, con, grads, iterations, position_iterations, dt, c
     dcon = [torch.empty((C, B), dtype=torch.float32, device=device) for _ in range(4)]
     rows = lib.contact_solver_bwd_scratch_rows(C, n, iterations, position_iterations)
     scratch = torch.empty((B, rows), dtype=torch.float32, device=device)
-    W = bwd_worlds_per_block(lib.contact_solver_bwd_smem_bytes(C, n), "contact_solve_bwd")
+    W = worlds_per_block(lib.contact_solver_bwd_smem_bytes(C, n), "contact_solve_bwd")
     err = lib.contact_solve_bwd(
         *(_ptr(getattr(con, k)) for k in (*_CON_PLANES, "active")),
         *(_ptr(x) for x in s),

@@ -7,14 +7,15 @@ kinds: polygon-polygon (``pp``), circle-circle (``cc``), circle-box
 runs integration and gravity, the world-frame vertices (with the per-world
 terrain override), each pair's contact lanes (the SAT manifold of a ``pp``
 pair, the analytic lane of the others), the contact solve and the joints,
-one CUDA thread per world.  The contact geometry stays inside the kernel;
-it returns the body planes and the ``[C, B]`` active flags.  Its plain
+one warp per world with the world's state in shared memory.  The contact
+geometry stays inside the kernel; it returns the body planes and the
+``[C, B]`` active flags.  Its plain
 version, :func:`fused_step_plain`, is the split step of ``engine.batched``
 with the plain solver.  ``csrc/fused_step_bwd.cu`` replaces its reverse
 pass, ``_step_bwd_kernel``, for the same five kinds: it recomputes the step
 from the primal inputs and returns the cotangents of the body planes and
 of the terrain planes, one warp per world with the world's state in shared
-memory (the solver reverse pass's launch plan); its plain version,
+memory; its plain version,
 :func:`fused_step_bwd_plain`, is autograd of :func:`fused_step_plain`.  A world with a kind neither the JAX
 fused kernel nor these have (``cp``, ``bp`` and the area kinds other than
 ``area_cb``) raises: it runs on the split step.
@@ -46,8 +47,8 @@ bwd_launches = 0
 # pair-group kernels the fused kernel and its reverse pass run: those of
 # the JAX fused kernel (pallas_step.py:81)
 FUSED_KERNELS = ("pp", "cc", "cb", "bb", "area_cb")
-# the kernels' per-thread limits (csrc/fused_step.cuh, contact_solver.cuh);
-# the launch refuses more as well
+# the kernels' limits (csrc/fused_step.cuh, contact_solver.cuh); the launch
+# refuses more as well
 MAX_PARTS = 16
 MAX_BODIES = 64
 # kinds of pair_i's Q_KIND column, in the order of csrc/fused_step.cuh's
@@ -74,8 +75,8 @@ def check_fused_step(world) -> None:
     """Raise, saying why, unless the fused kernels run ``world`` on the card.
 
     Beyond :func:`supports_fused_step`, a world may have at most
-    ``MAX_PARTS`` = 16 parts and ``MAX_BODIES`` = 64 bodies: the kernel
-    keeps every part's vertices in per-thread arrays.  So billiards with 47
+    ``MAX_PARTS`` = 16 parts (the JAX kernel's own limit,
+    ``pallas_step.py:51``) and ``MAX_BODIES`` = 64 bodies.  So billiards with 47
     object balls (52 parts) raises here, where the JAX package silently
     takes its split step (``engine/batched.py:1158-1167``).  The reverse
     pass walks back every kind of ``FUSED_KERNELS``, so the same gate
@@ -322,11 +323,11 @@ class _FusedStep(torch.autograd.Function):
         return (None, dtx, dty, *ds)
 
 
-def _launch_operands(statics, s, tx, ty, plan=None):
+def _launch_operands(statics, s, tx, ty, plan):
     """Check the planes and the world; return the library, the pointers of
     the kernels' static operands, the scalar arguments the kernels end
-    with, and the shapes.  For the reverse pass ``plan(lib, world, C, n,
-    P, pairs)`` gives its launch plan, which goes before the stream."""
+    with, and the shapes.  ``plan(lib, world, C, n, P, pairs)`` gives the
+    kernel's launch plan, which goes before the stream."""
     from parallax_tpu_torch.ops import _build
     from parallax_tpu_torch.ops.contact_solver import _check, _ptr, _tail, solver_operands
 
@@ -357,7 +358,7 @@ def _launch_operands(statics, s, tx, ty, plan=None):
         P, pairs, _lane_count(world), MAX_VERTS, sum(1 << p for p in tparts),
         int(cfg.integrator == "symplectic"), float(gx * dt), float(gy * dt),
         *_tail(world, cfg.solver_iterations, cfg.position_iterations, dt, cfg.contact,
-               B, C, n, stream, *(() if plan is None else plan(lib, world, C, n, P, pairs))),
+               B, C, n, stream, *plan(lib, world, C, n, P, pairs)),
     )
     operands = (*(_ptr(x) for x in fops), *(_ptr(x) for x in sops))
     return lib, operands, scalars, (C, n, B)
@@ -365,20 +366,16 @@ def _launch_operands(statics, s, tx, ty, plan=None):
 
 def _step_cuda(statics, s, tx, ty):
     global launches
-    from parallax_tpu_torch.ops.contact_solver import _ptr
+    from parallax_tpu_torch.ops.contact_solver import _ptr, body_lanes
 
-    lib, operands, scalars, (C, n, B) = _launch_operands(statics, s, tx, ty)
+    lib, operands, scalars, (C, n, B) = _launch_operands(statics, s, tx, ty, _fwd_plan)
     device = s.px.device
     outs = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
     active = torch.empty((C, B), dtype=torch.bool, device=device)
-    geo = torch.empty((4, C, B), dtype=torch.float32, device=device)
-    scratch = torch.empty(
-        (lib.contact_solver_num_fields(), C, B), dtype=torch.float32, device=device
-    )
     err = lib.fused_step_fwd(
         *(_ptr(x) for x in s), _ptr(tx), _ptr(ty),
         *(_ptr(x) for x in outs), _ptr(active),
-        *operands, _ptr(geo), _ptr(scratch), *scalars,
+        *operands, _ptr(body_lanes(statics[0])), *scalars,
     )
     if err != 0:
         raise RuntimeError(f"fused_step_fwd launch failed: CUDA error {err}")
@@ -415,14 +412,22 @@ def _pair_rows(world) -> int:
     return world.static(("pair_rows",), build)
 
 
+def _fwd_plan(lib, world, C, n, P, pairs):
+    """The forward kernel's launch plan: its worlds per block
+    (``contact_solver.worlds_per_block``)."""
+    from parallax_tpu_torch.ops.contact_solver import worlds_per_block
+
+    return (worlds_per_block(lib.fused_step_fwd_smem_bytes(C, n, P), "fused_step_fwd"),)
+
+
 def _bwd_plan(lib, world, C, n, P, pairs):
     """The reverse pass's launch plan: its per-pair slot rows and its
-    worlds per block (``bwd_worlds_per_block``)."""
-    from parallax_tpu_torch.ops.contact_solver import bwd_worlds_per_block
+    worlds per block (``contact_solver.worlds_per_block``)."""
+    from parallax_tpu_torch.ops.contact_solver import worlds_per_block
 
     R = _pair_rows(world)
     per_world = lib.fused_step_bwd_smem_bytes(C, n, P, pairs, R)
-    return R, bwd_worlds_per_block(per_world, "fused_step_bwd")
+    return R, worlds_per_block(per_world, "fused_step_bwd")
 
 
 def _fused_bwd_cuda(statics, s, tx, ty, grads):

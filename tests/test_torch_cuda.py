@@ -712,7 +712,7 @@ def test_reverse_kernels_are_deterministic_on_card(crates, kernel, monkeypatch):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     for w in (1, 3, 8):
-        monkeypatch.setattr(contact_solver, "BWD_WORLDS_PER_BLOCK", w)
+        monkeypatch.setattr(contact_solver, "WORLDS_PER_BLOCK", w)
         got = _reverse(kernel, crates, s, cot)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, got)), w
@@ -732,6 +732,59 @@ def test_reverse_kernels_hold_a_ragged_batch_on_card(crates, kernel):
     for x, y in zip(got, want):
         assert torch.isfinite(x).all()
         torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+
+
+def _forward(kernel, world, s, plain=False):
+    """One launch of a forward kernel (or its plain version) on the crate
+    pile's planes: the solver's on the lanes of the integrated state, or
+    the fused step's.  Returns the six body planes and, fused, the flags."""
+    if kernel == "fused":
+        step = fused_step.fused_step_plain if plain else fused_step.physics_core_fused
+        out, con = step(world, s)
+        return (*out, con.active)
+    c = world.config
+    si, _ = tb.integrate_bm(world, s)
+    con = tb.collide_batched(world, si)
+    solve = contact_solver.solve_contacts_plain if plain else contact_solver.solve_contacts
+    return tuple(solve(world, si, con, c.solver_iterations, c.position_iterations, c.dt,
+                       c.contact))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["solve", "fused"])
+def test_forward_kernels_are_deterministic_on_card(crates, kernel, monkeypatch):
+    """Both forward kernels, one warp per world with no float atomics, on
+    the crate pile at B=1024: two launches agree to the bit, and so do
+    launches with 1, 3 and 8 worlds a block and, for the solve, with the
+    lane fields in scratch in place of shared memory."""
+    s = crate_overlap_state(crates, 1024)
+    first, again = _forward(kernel, crates, s), _forward(kernel, crates, s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for w in (1, 3, 8):
+        monkeypatch.setattr(contact_solver, "WORLDS_PER_BLOCK", w)
+        got = _forward(kernel, crates, s)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, got)), w
+    monkeypatch.setattr(contact_solver, "FIELDS_MIN_WORLDS", 10**6)
+    got = _forward(kernel, crates, s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["solve", "fused"])
+def test_forward_kernels_hold_a_ragged_batch_on_card(crates, kernel):
+    """B=1021 worlds: every world's body planes hold the plain version's
+    within 1e-5 and the fused step's flags are identical."""
+    s = crate_overlap_state(crates, 1021)
+    got, want = _forward(kernel, crates, s), _forward(kernel, crates, s, plain=True)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        if x.dtype == torch.bool:
+            assert torch.equal(x, y)
+        else:
+            torch.testing.assert_close(x, y, rtol=0, atol=ATOL)
 
 
 @pytest.mark.cuda
@@ -759,17 +812,24 @@ def test_solver_reverse_pass_on_billiards48_on_card(card):
 
 @pytest.mark.cuda
 def test_reverse_pass_plan_refuses_a_world_over_the_shared_memory_limit_on_card(card):
-    """The reverse passes' launch plan: every world of the repo fits a
-    block (billiards48's 52 bodies and 1320 lanes included), and a world
+    """The kernels' launch plan: every world of the repo fits a block
+    (billiards48's 52 bodies and 1320 lanes included: its solve keeps the
+    lane fields in scratch, the crate pile's in shared memory), and a world
     whose shared memory alone exceeds the H100's 227 KB a block (20,000
     lanes) raises ValueError naming the limit, never a launch."""
     from parallax_tpu_torch.ops import _build
 
     lib = _build.load()
-    assert contact_solver.bwd_worlds_per_block(
+    assert contact_solver.solve_plan(lib, 1320, 52)[0] == 0
+    assert contact_solver.solve_plan(lib, 88, 14) == (1, 8)
+    assert contact_solver.worlds_per_block(
+        lib.fused_step_fwd_smem_bytes(88, 14, 14), "fused_step_fwd") == 8
+    assert contact_solver.worlds_per_block(
         lib.contact_solver_bwd_smem_bytes(1320, 52), "contact_solve_bwd") >= 1
-    assert contact_solver.bwd_worlds_per_block(
+    assert contact_solver.worlds_per_block(
         lib.fused_step_bwd_smem_bytes(88, 14, 14, 88, 2), "fused_step_bwd") >= 4
     with pytest.raises(ValueError, match="227 KB"):
-        contact_solver.bwd_worlds_per_block(
+        contact_solver.worlds_per_block(
             lib.contact_solver_bwd_smem_bytes(20000, 64), "contact_solve_bwd")
+    with pytest.raises(ValueError, match="contact_solve_fwd"):
+        contact_solver.solve_plan(lib, 20000, 64)

@@ -155,22 +155,25 @@ def test_fused_plain_vjp_matches_jax_vjp_on_robocup(robocup):
 
 
 def test_both_kernels_dispatch_every_kind_by_name():
-    """``pair_lanes`` (a pair's lanes, for the forward's ``pair_geometry``
-    and the reverse pass's recompute) and the reverse pass's lane adjoint
-    (``pair_adjoint``) name every kind of ``PairKind`` in a case of their
-    own, so no kind runs as another; a kind neither names gives no lane and
-    no cotangent.  Both launches check the lane count the kinds give."""
+    """``pair_lanes`` (a pair's lanes, for ``integrate_and_collide``, the
+    first phase of the forward and of the reverse pass's recompute) and the
+    reverse pass's lane adjoint (``pair_adjoint``) name every kind of
+    ``PairKind`` in a case of their own, so no kind runs as another; a kind
+    neither names gives no lane and no cotangent.  Both kernels run that
+    one first phase, and both launches check the lane count the kinds
+    give."""
     csrc = Path(fused_step.__file__).resolve().parents[1] / "csrc"
     head = (csrc / "fused_step.cuh").read_text()
     bwd = (csrc / "fused_step_bwd.cu").read_text()
     (enum,) = re.findall(r"enum PairKind \{([^}]*)\}", head)
     kinds = [k.strip() for k in enum.split(",")]
     assert kinds == ["K_" + k.upper() for k in fused_step._KINDS]
-    geometry = head[head.index("__device__ int pair_lanes"):
-                    head.index("__device__ void pair_geometry")]
+    geometry = head[head.index("__device__ int pair_lanes"):head.index("struct StepSmem")]
     adjoint = bwd[bwd.index("__device__ void pair_adjoint"):bwd.index("__global__")]
-    assert "pair_lanes(" in head[head.index("__device__ void pair_geometry"):]
-    assert "pair_lanes(" in bwd and "pair_adjoint(" in bwd[bwd.index("__global__"):]
+    assert "pair_lanes(" in head[head.index("__device__ void integrate_and_collide"):]
+    assert "pair_adjoint(" in bwd[bwd.index("__global__"):]
+    for src in ((csrc / "fused_step.cu").read_text(), bwd):
+        assert "integrate_and_collide(" in src[src.index("__global__"):]
     for k in kinds:
         assert f"case {k}:" in geometry, k
         assert f"case {k}:" in adjoint or f"qi[Q_KIND] == {k}" in adjoint, k

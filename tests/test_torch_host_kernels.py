@@ -99,5 +99,5 @@ def test_host_reverse_kernels_give_the_same_bits_for_any_worlds_per_block(host, 
 
     first = both()
     for w in (1, 2, 3, 4):
-        monkeypatch.setattr(contact_solver, "BWD_WORLDS_PER_BLOCK", w)
+        monkeypatch.setattr(contact_solver, "WORLDS_PER_BLOCK", w)
         assert all(torch.equal(a, b) for a, b in zip(first, both())), w

@@ -52,7 +52,7 @@ SHIM = """#pragma once
 #define __global__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __syncwarp()
 #define __syncthreads()
 #define __ballot_sync(mask, p) ((p) ? 1u : 0u)
