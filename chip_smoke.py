@@ -178,7 +178,7 @@ def fused_bound_ms(world, override_parts, n_active, B):
     per_world = 0
     for _, _, va, vb, _, _, _, kind in ops_.pair_i.tolist():
         per_world += pair_ops(va, vb, kind)
-    per_world += sum(8 * nv for p, (_, _, nv) in enumerate(parts) if p not in override_parts)
+    per_world += sum(8 * nv for p, (_, _, nv, _) in enumerate(parts) if p not in override_parts)
     n, C, J = world.n_bodies, world.table.n_contacts, world.joints.n_joints
     per_world += 48 * n
     cfg = world.config
@@ -308,6 +308,8 @@ def circle_worlds(env_b, gpu):
         ("billiards8 split", Billiards(), "split"),
         ("billiards8 fused", env_b, "fused"),
         ("billiards48 split", Billiards(BilliardsConfig(n_object=47)), "split"),
+        ("billiards48 fused", Billiards(BilliardsConfig(n_object=47, use_cuda_fused=True)),
+         "fused"),
     )
     for label, e, kind in paths:
         cp = circle_params(e.observation_size, dev)
@@ -1264,6 +1266,270 @@ def launch_plans(gpu):
     return out
 
 
+B_LARGE = 1024  # the override world's batch in phase 3, billiards48's gradient's
+LARGE_H, LARGE_SEGMENTS = 20, 2  # billiards48's fused gradient (cue_loss_fn)
+
+
+def large_worlds(gpu):
+    """Phase 3 on worlds past the kernels' old limits of 16 parts, 64
+    bodies and a 32-bit override mask, each kernel against its plain
+    version (forwards: body planes within ATOL, flags identical; reverse
+    passes at the bar): billiards48 (52 parts, C=1320) on both fused
+    kernels at B48 from its pairs state, the forward keeping its lane
+    fields in scratch; billiards61 (65 bodies, C=2074) on all four kernels
+    at B48; the override world (``torch_scenarios.override_world``, its
+    overridden slab at part 32) on both fused kernels at B_LARGE.  Then
+    billiards48's fused step and its plain version timed in turns at B from
+    the pairs state, and its reverse pass on a path: the gradient of
+    ``cue_loss_fn`` through a LARGE_H-step fused rollout at B_LARGE after
+    a warm-up (LARGE_H reverse-pass launches, none of a solver kernel),
+    the pass timed against its plain VJP at B_LARGE.  Returns ``{world:
+    entry}``."""
+    from parallax_tpu_torch.engine.batched import collide_batched, integrate_bm
+    from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
+    from parallax_tpu_torch.ops import _build, contact_solver, fused_step
+    from parallax_tpu_torch.parallel import rollout
+    from torch_scenarios import (billiards_pairs_state, cotangents, override_state,
+                                 override_world)
+
+    dev = torch.device("cuda")
+    lib = _build.load()
+    out = {}
+
+    def fused_pair(label, w, s, override, cot):
+        got_s, got_c = fused_step.physics_core_fused(w, s, override)
+        want_s, want_c = fused_step.fused_step_plain(w, s, override)
+        torch.cuda.synchronize()
+        n_act = int(want_c.active.sum())
+        check(n_act > 0, f"{label}: no active lane")
+        err = hold_fwd(f"fused_step_fwd on {label}", (*got_s, got_c.active),
+                       (*want_s, want_c.active))
+        got = fused_step.fused_step_bwd(w, s, override, cot)
+        want = fused_step.fused_step_bwd_plain(w, s, override, cot)
+        torch.cuda.synchronize()
+        berr, share = hold_vjp(f"fused_step_bwd on {label}", (*got[0], *got[1:]),
+                               (*want[0], *want[1:]))
+        C, n, P = w.table.n_contacts, w.n_bodies, len(w.parts.nverts)
+        tparts = tuple(sorted(override or {}))
+        fplan = fused_step._fwd_plan(lib, w, C, n, P, C)
+        bplan = fused_step._bwd_plan(lib, w, C, n, P, len(fused_step.fused_operands(w).pair_i))
+        print(f"[kernel] fused_step_fwd vs plain on {label} ({n} bodies, {P} parts, C={C}, "
+              f"override parts {list(tparts)}) at B={s.px.shape[1]}: {n_act} active lanes, "
+              f"flags identical, max |diff| {err:.3e} <= {ATOL} (lane fields in "
+              f"{'shared memory' if fplan[0] else 'scratch'}, {fplan[1]} worlds a block)")
+        print(f"[kernel] fused_step_bwd vs plain VJP on {label} at B={s.px.shape[1]}: max "
+              f"|diff| {berr:.3e}, {share:.3f} of the bar ({bplan[1]} worlds a block, "
+              f"{lib.fused_step_bwd_smem_bytes(C, n, P, len(fused_step.fused_operands(w).pair_i), bplan[0])} "
+              f"bytes of shared memory a world)")
+        return {"fwd": {"max_abs_err": err, "active": n_act, "fields_in_smem": fplan[0],
+                        "worlds_per_block": fplan[1]},
+                "bwd": {"max_abs_err": berr, "share_of_bar": share,
+                        "worlds_per_block": bplan[1]}}
+
+    e48 = Billiards(BilliardsConfig(n_object=47, use_cuda_fused=True))
+    w48 = e48.world
+    check(len(w48.parts.nverts) == 52, "billiards48: 52 parts")
+    s48 = billiards_pairs_state(e48, B48)
+    out["billiards48"] = fused_pair("billiards48's pairs state", w48, s48, None,
+                                    cotangents(w48.n_bodies, B48, 5, dev))
+    check(not out["billiards48"]["fwd"]["fields_in_smem"],
+          "billiards48's fused forward: its lane fields should not fit shared memory")
+
+    e61 = Billiards(BilliardsConfig(n_object=60, use_cuda_fused=True))
+    w61, ws61 = e61.world, Billiards(BilliardsConfig(n_object=60)).world
+    check(w61.n_bodies == 65, "billiards61: 65 bodies")
+    s61 = billiards_pairs_state(e61, B48)
+    cot61 = cotangents(w61.n_bodies, B48, 5, dev)
+    out["billiards61"] = fused_pair("billiards61's pairs state", w61, s61, None, cot61)
+    c = ws61.config
+    args = (c.solver_iterations, c.position_iterations, c.dt, c.contact)
+    si, _ = integrate_bm(ws61, s61)
+    con = collide_batched(ws61, si)
+    err = hold_fwd("contact_solve_fwd on billiards61",
+                   tuple(contact_solver.solve_contacts(ws61, si, con, *args)),
+                   tuple(contact_solver.solve_contacts_plain(ws61, si, con, *args)))
+    got = contact_solver.solve_contacts_bwd(ws61, si, con, cot61, *args)
+    want = contact_solver.solve_contacts_bwd_plain(ws61, si, con, cot61, *args)
+    torch.cuda.synchronize()
+    berr, share = hold_vjp("contact_solve_bwd on billiards61", (*got[0], *got[1:]),
+                           (*want[0], *want[1:]))
+    print(f"[kernel] contact_solve_fwd vs plain on billiards61 at B={B48} "
+          f"({int(con.active.sum())} active lanes, plan {contact_solver.solve_plan(lib, ws61.table.n_contacts, 65)}): "
+          f"max |diff| {err:.3e} <= {ATOL}; contact_solve_bwd vs plain VJP: max |diff| "
+          f"{berr:.3e}, {share:.3f} of the bar")
+    out["billiards61"]["solve"] = {"max_abs_err": err}
+    out["billiards61"]["solve_bwd"] = {"max_abs_err": berr, "share_of_bar": share}
+
+    wo, slab = override_world("cuda")
+    so, ovr = override_state(wo, slab, B_LARGE)
+    check(slab == 32 and fused_step.fused_operands(wo, (slab,)).part_i[slab, 3].item() == 0,
+          "override world: the slab is part 32, rank 0")
+    out["override"] = fused_pair("the override world (slab at part 32)", wo, so, ovr,
+                                 cotangents(wo.n_bodies, B_LARGE, 5, dev))
+
+    # billiards48's fused step in turns with its plain version at B, and its bound
+    sb = billiards_pairs_state(e48, B)
+    ms, plain_ms, t = turns(lambda: fused_step.physics_core_fused(w48, sb),
+                            lambda: fused_step.fused_step_plain(w48, sb), 3)
+    act = fused_step.fused_step_plain(w48, sb)[1].active
+    n_act = int(act.sum())
+    bound, by, nbytes, ops = fused_bound_ms(w48, [], n_act, B)
+    print(f"[time] fused step per call on billiards48 at B={B}: kernel {ms:.4f} ms, plain "
+          f"torch {plain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+    print(f"[bound] fused step on billiards48 at B={B}, {n_act} active lanes: {bound:.5f} ms "
+          f"({by}; {nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M float32 operations)")
+    out["billiards48"]["fwd"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    del sb, act
+
+    # billiards48's fused reverse pass on a path, then timed at B_LARGE
+    params = mlp_params(dev, e48.observation_size, e48.action_size)
+    loss_fn = cue_loss_fn(e48, LARGE_H, LARGE_SEGMENTS)
+    states = e48.reset_fn_batch(keys_for(B_LARGE, 7, dev))
+    torch.autograd.grad(loss_fn(params, states)[0], list(params.values()))  # warm-up
+    torch.cuda.synchronize()
+    contact_solver.launches = contact_solver.bwd_launches = 0
+    fused_step.launches = fused_step.bwd_launches = 0
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(params, states)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = (contact_solver.launches, contact_solver.bwd_launches,
+              fused_step.launches, fused_step.bwd_launches)
+    check(counts == (0, 0, 2 * LARGE_H, LARGE_H),
+          f"billiards48 fused gradient: launches {counts}, want (0, 0, {2 * LARGE_H}, {LARGE_H})")
+    check(all(torch.isfinite(g).all().item() for g in grads), "billiards48 gradient: non-finite")
+    print(f"[train] billiards48 fused cue objective gradient B={B_LARGE} h={LARGE_H} "
+          f"segments={LARGE_SEGMENTS}: loss {loss.item():.6f}, {sec:.3f} s, launches fused fwd "
+          f"{counts[2]} bwd {counts[3]}, solver 0, on {gpu}")
+    sl = billiards_pairs_state(e48, B_LARGE)
+    cot = cotangents(w48.n_bodies, B_LARGE, 5, dev)
+    bms, bplain_ms, t = turns(lambda: fused_step.fused_step_bwd(w48, sl, None, cot),
+                              lambda: fused_step.fused_step_bwd_plain(w48, sl, None, cot), 2)
+    act = fused_step.fused_step_plain(w48, sl)[1].active
+    bbound, bby, nbytes, ops = fused_bwd_bound_ms(w48, [], int(act.sum()),
+                                                  touched_pairs(w48, act), B_LARGE)
+    print(f"[time] fused reverse pass per call on billiards48 at B={B_LARGE}: kernel {bms:.4f} "
+          f"ms, plain autograd {bplain_ms:.4f} ms (turns {[round(x, 4) for x in t]}) on {gpu}")
+    print(f"[bound] fused reverse pass on billiards48 at B={B_LARGE}: {bbound:.5f} ms ({bby}; "
+          f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M float32 operations)")
+    out["billiards48"]["bwd"].update(launches=counts[3], ms=bms, plain_ms=bplain_ms,
+                                     bound_ms=bbound, bound_by=bby, grad_s=sec)
+    return out
+
+
+def device_kernels(fn):
+    """``(device kernels, device ms)`` of one call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def pair_view(world, contacts):
+    """``(active, depth)``, each ``[..., pairs]``: per table pair, whether
+    any of its lanes is active and its deepest lane's depth (a SAT
+    manifold's two lanes are one pair)."""
+    act, dep, lane = [], [], 0
+    d = contacts.penetration.norm(dim=-1)
+    for g in world.table.groups:
+        w = 2 if (g.kernel in ("pp", "bp") and world.config.narrowphase == "sat") else 1
+        for _ in range(g.size):
+            act.append(contacts.active[..., lane:lane + w].any(-1))
+            dep.append(d[..., lane:lane + w].amax(-1))
+            lane += w
+    return torch.stack(act, -1), torch.stack(dep, -1)
+
+
+DC_CPU_B = 1024  # detect_contacts card against CPU
+DC_PEN_ATOL = 1e-4  # card vs CPU penetrations on lanes active in both
+DC_FLIPS = 1e-3  # the share of lanes whose flag may differ card vs CPU (knife edges)
+
+
+def detect_contacts_phase(gpu):
+    """The per-world collide, ``World.detect_contacts``, on the card: the
+    lander's world (pp pairs on its own ground squares,
+    ``torch_scenarios.lander_touch_state``) and the mixed world (cc, cb,
+    pp), each built with ``narrowphase="sat"`` and ``"gjk_epa"``, on B
+    states on the card.  Per narrow phase: its time (CUDA events) and its
+    device kernels a call (torch.profiler), finite values of the table's
+    shape; the two narrow phases' per-pair activity equal and their depths
+    within 0.01 (``tests/test_reference_modes.py``'s rule); the card
+    against the CPU on DC_CPU_B of the states: flags equal but for a
+    counted share of at most DC_FLIPS of the lanes, penetrations within
+    DC_PEN_ATOL where both are active.  No kernel of the repo runs here:
+    the geometry is plain torch, as it is XLA in the JAX package.  Returns
+    ``{world: {narrowphase: entry}}``."""
+    from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from torch_scenarios import lander_touch_state, mixed_state, mixed_world
+    from parallax_tpu_torch.engine.batched import _from_soa
+
+    out = {}
+    for name in ("lander", "mixed_world"):
+        res, views = {}, {}
+        for nph in ("sat", "gjk_epa"):
+            if name == "lander":
+                world = LunarLander(LanderConfig(narrowphase=nph)).world
+                cpu_env = LunarLander(LanderConfig(narrowphase=nph), device="cpu")
+                cpu_world, st = cpu_env.world, lander_touch_state(cpu_env, B)
+            else:
+                world, state = mixed_world("cuda", narrowphase=nph, use_cuda_fused=False)
+                cpu_world, cstate = mixed_world("cpu", narrowphase=nph, use_cuda_fused=False)
+                st = _from_soa(mixed_state(cpu_world, cstate, B))
+            gst = type(st)(*(x.cuda() for x in st))
+            counts = (contact_solver.launches, fused_step.launches)
+            got = world.detect_contacts(gst)
+            torch.cuda.synchronize()
+            check((contact_solver.launches, fused_step.launches) == counts,
+                  f"{name} {nph}: detect_contacts launched a kernel of the repo")
+            C = world.table.n_contacts
+            check(tuple(got.active.shape) == (B, C) and tuple(got.penetration.shape) == (B, C, 2),
+                  f"{name} {nph}: contact buffer shape {tuple(got.penetration.shape)}")
+            check(bool(torch.isfinite(got.penetration).all() & torch.isfinite(got.point).all()),
+                  f"{name} {nph}: non-finite contacts")
+            n_active = int(got.active.sum())
+            check(n_active > 0, f"{name} {nph}: no active lane")
+            fn = lambda: world.detect_contacts(gst)  # noqa: E731
+            cuda_ms(fn, 1)
+            ms = min(cuda_ms(fn, 3) for _ in range(2))
+            kernels, dev_ms = device_kernels(fn)
+            # card against CPU on the first DC_CPU_B states
+            sub = type(st)(*(x[:DC_CPU_B] for x in st))
+            ref = cpu_world.detect_contacts(sub)
+            g_act, r_act = got.active[:DC_CPU_B].cpu(), ref.active
+            flips = int((g_act != r_act).sum())
+            check(flips <= DC_FLIPS * g_act.numel(),
+                  f"{name} {nph}: {flips} flags differ card vs CPU")
+            both = g_act & r_act
+            pen_err = (got.penetration[:DC_CPU_B].cpu() - ref.penetration).abs().amax(-1)[both]
+            pen_err = pen_err.max().item() if pen_err.numel() else 0.0
+            check(pen_err <= DC_PEN_ATOL, f"{name} {nph}: card vs CPU penetration {pen_err}")
+            views[nph] = pair_view(world, got)
+            res[nph] = {"ms": ms, "device_kernels": kernels, "device_ms": dev_ms, "lanes": C,
+                        "active": n_active, "cpu_flag_flips": flips, "cpu_max_abs_err": pen_err}
+            print(f"[geometry] {name} detect_contacts narrowphase={nph} B={B} (C={C}): "
+                  f"{ms:.3f} ms a call, {kernels} device kernels ({dev_ms:.3f} ms of device "
+                  f"time), {n_active} active lanes; card vs CPU at B={DC_CPU_B}: {flips} flags "
+                  f"differ, max |pen diff| {pen_err:.3e} where both are active, on {gpu}")
+            del got, gst
+        (a_sat, d_sat), (a_ref, d_ref) = views["sat"], views["gjk_epa"]
+        same = int((a_sat != a_ref).sum())
+        both = a_sat & a_ref
+        dd = (d_sat - d_ref).abs()[both].max().item()
+        check(same == 0, f"{name}: {same} pairs differ in activity between the narrow phases")
+        check(dd < 0.01, f"{name}: SAT and GJK/EPA depths differ by {dd}")
+        print(f"[geometry] {name}: SAT and GJK/EPA agree on every pair's activity "
+              f"({int(a_sat.sum())} active pairs), depths within {dd:.3e} (< 0.01)")
+        res["depth_diff"] = dd
+        out[name] = res
+    return out
+
+
 def crate_card_vs_cpu():
     """Phases 4 and 6 on the user-built worlds, B=SMALL_B: ``step_batched``
     on the crate pile from ``crate_overlap_state``, split and fused on the
@@ -1646,6 +1912,11 @@ def main():
     crates = crate_kernels(gpu)
     lap("phase 3 on the kernels' launch plan starts")
     plans = launch_plans(gpu)
+    lap("phase 3 on the worlds past the old part and body limits starts")
+    large = large_worlds(gpu)
+
+    lap("phase 3b (the geometry layer, World.detect_contacts) starts")
+    print("[geometry] " + json.dumps(detect_contacts_phase(gpu)))
 
     lap("phase 4 starts")
     # -- phase 4: the rollout path ---------------------------------------------------
@@ -1879,7 +2150,7 @@ def main():
             # the crate pile's split step_batched
             "launches": launches + sum(circle[f"{k} split"][1][0] for k in solves)
             + rc_paths["robocup split"][1][0] + crate_rates["split"][1][0],
-            "max_abs_err": max_err,
+            "max_abs_err": max(max_err, large["billiards61"]["solve"]["max_abs_err"]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": fwd_bound,
@@ -1889,6 +2160,7 @@ def main():
             "robocup": {"launches": rc_paths["robocup split"][1][0], **rc["solve"]},
             "crates": {"launches": crate_rates["split"][1][0], **crates["crates"]["solve"]},
             "mixed": crates["mixed"]["solve"],
+            "billiards61": large["billiards61"]["solve"],
             **plans["contact_solve_fwd"],
         },
         {
@@ -1901,7 +2173,8 @@ def main():
             "launches": train["split"][1][1] + rc_train["robocup split"][1][1]
             + crate_grad["split"][1][1],
             "max_abs_err": max(bwd_err, rc["solve_bwd"]["max_abs_err"],
-                               crates["crates"]["solve_bwd"]["max_abs_err"]),
+                               crates["crates"]["solve_bwd"]["max_abs_err"],
+                               large["billiards61"]["solve_bwd"]["max_abs_err"]),
             "ms": bwd_ms,
             "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_bound,
@@ -1911,6 +2184,7 @@ def main():
             "crates": {"launches": crate_grad["split"][1][1], **crates["crates"]["solve_bwd"]},
             # a reading on random drops: no bar (see crate_kernels)
             "mixed": crates["mixed"]["solve_bwd"],
+            "billiards61": large["billiards61"]["solve_bwd"],
             **plans["contact_solve_bwd"],
         },
         {
@@ -1922,9 +2196,10 @@ def main():
             # the lander's fused rollout (pp), billiards8's (cc, cb),
             # RoboCup's (cc, cb, area_cb) and the crate pile's (bb, cb, cc)
             "launches": fused_launches + circle["billiards8 fused"][1][1]
-            + rc_paths["robocup fused"][1][1] + crate_rates["fused"][1][1],
-            "max_abs_err": max(fused_err, rc["fwd"]["max_abs_err"],
-                               crates["fwd"]["max_abs_err"]),
+            + rc_paths["robocup fused"][1][1] + crate_rates["fused"][1][1]
+            + circle["billiards48 fused"][1][1],
+            "max_abs_err": max([fused_err, rc["fwd"]["max_abs_err"], crates["fwd"]["max_abs_err"]]
+                               + [v["fwd"]["max_abs_err"] for v in large.values()]),
             "ms": fused_ms,
             "plain_ms": fused_plain_ms,
             "bound_ms": f_bound,
@@ -1941,6 +2216,10 @@ def main():
             "robocup": {"launches": rc_paths["robocup fused"][1][1],
                         **{k: v for k, v in rc["fwd"].items() if k != "active"}},
             "crates": {"launches": crate_rates["fused"][1][1], **crates["fwd"]},
+            "billiards48": {"launches": circle["billiards48 fused"][1][1],
+                            **large["billiards48"]["fwd"]},
+            "billiards61": large["billiards61"]["fwd"],
+            "override": large["override"]["fwd"],
             **plans["fused_step_fwd"],
         },
         {
@@ -1952,9 +2231,11 @@ def main():
             # the fused train steps of the lander and RoboCup, billiards8's
             # cue objective and the crate pile's fused gradient
             "launches": train["fused"][1][3] + rc_train["robocup fused"][1][3]
-            + rc_train["billiards8 fused cue objective"][1][3] + crate_grad["fused"][1][3],
-            "max_abs_err": max(fbwd_err, rc["bwd"]["max_abs_err"],
-                               rc["bwd_billiards8"]["max_abs_err"], crates["bwd"]["max_abs_err"]),
+            + rc_train["billiards8 fused cue objective"][1][3] + crate_grad["fused"][1][3]
+            + large["billiards48"]["bwd"]["launches"],
+            "max_abs_err": max([fbwd_err, rc["bwd"]["max_abs_err"],
+                                rc["bwd_billiards8"]["max_abs_err"], crates["bwd"]["max_abs_err"]]
+                               + [v["bwd"]["max_abs_err"] for v in large.values()]),
             "ms": fbwd_ms,
             "plain_ms": fbwd_plain_ms,
             "bound_ms": fb_bound,
@@ -1963,6 +2244,9 @@ def main():
             "robocup": {"launches": rc_train["robocup fused"][1][3], **rc["bwd"]},
             "billiards8": {"launches": rc_train["billiards8 fused cue objective"][1][3], **rc["bwd_billiards8"]},
             "crates": {"launches": crate_grad["fused"][1][3], **crates["bwd"]},
+            "billiards48": large["billiards48"]["bwd"],
+            "billiards61": large["billiards61"]["bwd"],
+            "override": large["override"]["bwd"],
             **plans["fused_step_bwd"],
         },
     ]}))

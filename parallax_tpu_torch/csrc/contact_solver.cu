@@ -40,8 +40,8 @@
 // else they go to the wrapper's scratch, world-major [B, NUM_FIELDS * C],
 // lane index fastest within a field (billiards48: 52 bodies, C=1320).
 //
-// C, n and J are runtime values, so the same kernel serves any world with
-// at most MAX_BODIES bodies.  Build without --use_fast_math and with
+// C, n and J are runtime values, so the same kernel serves any world whose
+// plan fits a block's shared memory.  Build without --use_fast_math and with
 // --fmad=false: the plain torch version rounds every product and sum on
 // its own, and so does this kernel.
 
@@ -87,7 +87,6 @@ contact_solve_kernel(const SolveOps o, const FwdPlanes pl, const BodyOut out,
 }  // namespace
 
 extern "C" int contact_solver_num_fields() { return NUM_FIELDS; }
-extern "C" int contact_solver_max_bodies() { return MAX_BODIES; }
 
 // Bytes of dynamic shared memory one world of the solve takes, with its
 // lane fields (fields_in_smem 1) or without (0).
@@ -119,7 +118,7 @@ extern "C" int contact_solve_fwd(
   const int W = worlds_per_block;
   const size_t smem =
       (size_t)W * fwd_words(C, n, fields_in_smem != 0) * sizeof(float);
-  if (n > MAX_BODIES || B <= 0 || W < 1 || W > MAX_WORLDS_PER_BLOCK ||
+  if (B <= 0 || W < 1 || W > MAX_WORLDS_PER_BLOCK ||
       smem > SMEM_LIMIT || (!fields_in_smem && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,4 @@
-// Constants and helpers shared by every kernel of the port: the body limit,
-// the solver's per-lane fields and lane constants, and the NaN-propagating
+// Constants and helpers shared by every kernel of the port: the solver's per-lane fields and lane constants, and the NaN-propagating
 // min and max.  The solver's warp walk (solver_walk.cuh) and the fused
 // step's lanes (fused_step.cuh) build on them.
 //
@@ -14,8 +13,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int MAX_BODIES = 64;
 
 // per-lane solver fields, F_NX ... F_BIAS from the setup, then the normal,
 // friction and position impulses

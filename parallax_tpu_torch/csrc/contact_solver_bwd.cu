@@ -141,7 +141,7 @@ extern "C" int contact_solve_bwd(
     float max_bias, int has_max_bias, int worlds_per_block, void* stream) {
   const int W = worlds_per_block;
   const size_t smem = (size_t)W * WorldSmem(C, n).words * sizeof(float);
-  if (n > MAX_BODIES || B <= 0 || W < 1 || W > MAX_WORLDS_PER_BLOCK ||
+  if (B <= 0 || W < 1 || W > MAX_WORLDS_PER_BLOCK ||
       smem > SMEM_LIMIT) {
     return (int)cudaErrorInvalidValue;
   }

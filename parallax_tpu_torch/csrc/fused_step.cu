@@ -51,9 +51,11 @@
 // pen/pt [4, C] and flags sit in the world's dynamic shared memory.  The
 // lane threads write the flags out.  Then the solver walk solves on those
 // planes and the integrated state, with the lane fields and impulses in
-// shared memory too ([NUM_FIELDS, C]: the 16 parts bound C by 240 and n by
-// 64, so a world never takes more than about 35 KB), and the body threads
-// write the six planes.  Per-body sums are taken in lane order, so every
+// shared memory too ([NUM_FIELDS, C]) where at least 4 worlds a block still
+// fit with them, else in the wrapper's world-major scratch [B, NUM_FIELDS *
+// C], as the solve kernel keeps them (the wrapper decides: billiards48, 52
+// parts and C=1320, takes about 150 KB a world with them and 71 KB
+// without), and the body threads write the six planes.  Per-body sums are taken in lane order, so every
 // launch and every plan gives the same bits.
 //
 // Build without --use_fast_math and with --fmad=false, and keep the plain
@@ -73,7 +75,7 @@ namespace {
 // planes and the solver walk's lane fields.
 struct FwdSmem {
   int state, qc, qs, wx, wy, geo, flags, fields, words;
-  __host__ __device__ FwdSmem(int C, int n, int P) {
+  __host__ __device__ FwdSmem(int C, int n, int P, bool fields_in_smem) {
     const StepSmem m(C, n, P);
     state = m.state;
     qc = m.qc;
@@ -86,22 +88,32 @@ struct FwdSmem {
     flags = r;  // their active flags, uint8 [C]
     r += byte_words(C);
     fields = r;  // the walk's lane fields and impulses [NUM_FIELDS, C]
-    r += NUM_FIELDS * C;
+    if (fields_in_smem) r += NUM_FIELDS * C;
     words = r;
   }
 };
 
-__global__ void __launch_bounds__(LANES * MAX_WORLDS_PER_BLOCK)
+// One instantiation a plan, each with at least 3 blocks an SM (at most 85
+// registers): ptxas gives the shared-memory one 80 registers and no spill,
+// as before the scratch plan existed, and the scratch one 80 and 16 bytes
+// spilled.  One kernel with a run-time choice of pointer took 104
+// registers (2 blocks an SM); without the minimum ptxas gave the two
+// instantiations 64 and 80 registers with spills, with a minimum of 1 or 2
+// 92 and 108 (sm_90a, -Xptxas -v).
+template <bool kFieldsInSmem>
+__global__ void __launch_bounds__(LANES * MAX_WORLDS_PER_BLOCK, 3)
 fused_step_kernel(const SolveOps o, const StepArgs st, const BodyOut out,
-                  uint8_t* active, int B, int W) {
+                  uint8_t* active, float* scratch, int B, int W) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / LANES, lane = threadIdx.x % LANES;
   const int b = blockIdx.x * W + warp;
   if (b >= B) return;
   const size_t Bs = B;
   const int C = o.C, n = o.n;
-  const FwdSmem M(C, n, st.P);
+  const FwdSmem M(C, n, st.P, kFieldsInSmem);
   float* s = smem + warp * M.words;
+  float* fields = kFieldsInSmem ? s + M.fields
+                                : scratch + (size_t)b * NUM_FIELDS * C;
   float* state = s + M.state;
   float* geo = s + M.geo;
   uint8_t* flags = reinterpret_cast<uint8_t*>(s + M.flags);
@@ -114,16 +126,18 @@ fused_step_kernel(const SolveOps o, const StepArgs st, const BodyOut out,
       flags, 1,
       Rows{state, 1}, Rows{state + n, 1}, Rows{state + 2 * n, 1},
       Rows{state + 3 * n, 1}, Rows{state + 4 * n, 1}, Rows{state + 5 * n, 1}};
-  Walk<false> w(o, io, s + M.fields, s, lane);
+  Walk<false> w(o, io, fields, s, lane);
   w.solve();
   w.write(out, Bs, b);
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory one world of the step takes.
-extern "C" int fused_step_fwd_smem_bytes(int C, int n, int P) {
-  return FwdSmem(C, n, P).words * (int)sizeof(float);
+// Bytes of dynamic shared memory one world of the step takes, with its
+// lane fields (fields_in_smem 1) or without (0).
+extern "C" int fused_step_fwd_smem_bytes(int C, int n, int P,
+                                         int fields_in_smem) {
+  return FwdSmem(C, n, P, fields_in_smem != 0).words * (int)sizeof(float);
 }
 
 // Launches the step on `stream` and returns cudaGetLastError().  Body
@@ -131,7 +145,8 @@ extern "C" int fused_step_fwd_smem_bytes(int C, int n, int P) {
 // contiguous; active is uint8 [C, B]; pair_i is int32 [npairs, PAIR_COLS]
 // and pair_f float32 [npairs, 2]; lanes is the lanes the pairs' kinds give,
 // which must equal C.  The solver operands and body_lanes are
-// contact_solve_fwd's; worlds_per_block (1 to 8) worlds share a block, one
+// contact_solve_fwd's; scratch is [B, NUM_FIELDS * C] where fields_in_smem
+// is 0, else unused; worlds_per_block (1 to 8) worlds share a block, one
 // warp each.
 extern "C" int fused_step_fwd(
     const float* px, const float* py, const float* vx, const float* vy,
@@ -143,24 +158,27 @@ extern "C" int fused_step_fwd(
     const float* lane_const, const int32_t* movable,
     const float* body_im, const float* body_ii,
     const int32_t* joint_body, const float* joint_f,
-    const int32_t* body_lanes,
-    int P, int npairs, int lanes, int V, int override_bits, int symplectic,
+    const int32_t* body_lanes, float* scratch,
+    int P, int npairs, int lanes, int V, int symplectic,
     float gdx, float gdy,
     int B, int C, int n, int J, int iterations, int position_iterations,
     float dt, float baumgarte, float slop, float baumgarte_dt,
-    float max_bias, int has_max_bias, int worlds_per_block, void* stream) {
+    float max_bias, int has_max_bias, int fields_in_smem,
+    int worlds_per_block, void* stream) {
   const int W = worlds_per_block;
-  const size_t smem = (size_t)W * FwdSmem(C, n, P).words * sizeof(float);
+  const size_t smem =
+      (size_t)W * FwdSmem(C, n, P, fields_in_smem != 0).words * sizeof(float);
   // lanes: what the pairs' kinds give, two a pp pair and one any other
-  if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C != lanes ||
-      lanes < npairs || lanes > 2 * npairs || B <= 0 || W < 1 ||
-      W > MAX_WORLDS_PER_BLOCK || smem > SMEM_LIMIT) {
+  if (V > MAX_V || C != lanes || lanes < npairs || lanes > 2 * npairs ||
+      B <= 0 || W < 1 || W > MAX_WORLDS_PER_BLOCK || smem > SMEM_LIMIT ||
+      (!fields_in_smem && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  const auto kernel = fields_in_smem ? fused_step_kernel<true>
+                                     : fused_step_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const SolveOps ops{body_a, body_b, partner, lane_const, movable,
@@ -168,10 +186,10 @@ extern "C" int fused_step_fwd(
                      C, n, J, iterations, position_iterations,
                      dt, baumgarte, slop, baumgarte_dt, max_bias, has_max_bias};
   const StepArgs st{px, py, vx, vy, ang, om, tx, ty, part_i, part_lv, pair_i,
-                    pair_f, P, npairs, V, override_bits, symplectic, gdx, gdy};
+                    pair_f, P, npairs, V, symplectic, gdx, gdy};
   const BodyOut out{opx, opy, ovx, ovy, oang, oom};
   const int blocks = (B + W - 1) / W, threads = W * LANES;
-  fused_step_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      ops, st, out, active, B, W);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(ops, st, out, active,
+                                                         scratch, B, W);
   return (int)cudaGetLastError();
 }

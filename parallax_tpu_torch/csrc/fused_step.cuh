@@ -18,12 +18,12 @@
 
 namespace {
 
-constexpr int MAX_PARTS = 16;  // ops/fused_step.py MAX_PARTS
 constexpr int MAX_V = 8;  // geometry/shapes.py MAX_VERTS
 constexpr int MAX_AXES = 2 * MAX_V;
 
-// columns of part_i [P, PART_COLS] and pair_i [npairs, PAIR_COLS]
-enum PartCol { P_BODY, P_ROTATE, P_NV, PART_COLS };
+// columns of part_i [P, PART_COLS] and pair_i [npairs, PAIR_COLS]; P_OVR
+// is the part's rank among the overridden parts (sorted(override)), or -1
+enum PartCol { P_BODY, P_ROTATE, P_NV, P_OVR, PART_COLS };
 enum PairCol { Q_A, Q_B, Q_VA, Q_VB, Q_MASK_A, Q_MASK_B, Q_LANE, Q_KIND, PAIR_COLS };
 // pair kinds (pair_i's Q_KIND), in the order of ops/fused_step.py's _KINDS:
 // two SAT lanes, or one analytic lane
@@ -32,12 +32,13 @@ enum PairKind { K_PP, K_CC, K_CB, K_AREA_CB, K_BB };
 struct StepArgs {
   const float *px, *py, *vx, *vy, *ang, *om;  // [n, B] before the step
   const float *tx, *ty;  // [k * V, B]: the k-th overridden part's rows
-  const int32_t* part_i;  // owning body, rotates (0/1), vertices in use
+  const int32_t* part_i;  // owning body, rotates (0/1), vertices in use,
+                          // override rank (-1: none)
   const float* part_lv;  // [P, V, 2] local vertices, repeat-padded
   const int32_t* pair_i;  // parts a, b; trimmed Va, Vb; edge-mask bits;
                           // first lane; kind
   const float* pair_f;  // [npairs, 2]: radii of parts a and b
-  int P, npairs, V, override_bits, symplectic;
+  int P, npairs, V, symplectic;
   float gdx, gdy;  // gravity times dt, per component
 };
 
@@ -413,10 +414,9 @@ __device__ void part_vertices(const StepArgs& st, size_t B, int b, int p,
                               float* py) {
   const int32_t* pi = st.part_i + p * PART_COLS;
   const int nv = pi[P_NV];
-  if ((st.override_bits >> p) & 1) {
+  if (pi[P_OVR] >= 0) {
     // the k-th overridden part, k its rank among them (sorted(override))
-    const int k = __popc(st.override_bits & ((1u << p) - 1u));
-    const size_t row = (size_t)k * st.V;
+    const size_t row = (size_t)pi[P_OVR] * st.V;
     for (int v = 0; v < nv; ++v) {
       px[v] = st.tx[(row + v) * B + b];
       py[v] = st.ty[(row + v) * B + b];

@@ -663,10 +663,10 @@ fused_step_bwd_kernel(const SolveOps o, const StepArgs st, const StepCots cot,
     }
     // an overridden part's into its rows of dtx, dty (rows past the
     // vertices it reads are 0)
-    if ((st.override_bits >> p) & 1) {
-      const int nv = st.part_i[p * PART_COLS + P_NV];
-      const int k = __popc(st.override_bits & ((1u << p) - 1u));
-      const size_t row = (size_t)k * st.V;
+    const int32_t* pi = st.part_i + p * PART_COLS;
+    if (pi[P_OVR] >= 0) {
+      const int nv = pi[P_NV];
+      const size_t row = (size_t)pi[P_OVR] * st.V;
       for (int v = 0; v < st.V; ++v) {
         out.dtx[(row + v) * Bs + b] = v < nv ? px[v] : 0.0f;
         out.dty[(row + v) * Bs + b] = v < nv ? py[v] : 0.0f;
@@ -682,7 +682,7 @@ fused_step_bwd_kernel(const SolveOps o, const StepArgs st, const StepCots cot,
     float gx = w.body(S_GQX)[i], gy = w.body(S_GQY)[i], ga = w.body(S_GQA)[i];
     for (int p = 0; p < st.P; ++p) {
       const int32_t* pi = st.part_i + p * PART_COLS;
-      if (((st.override_bits >> p) & 1) || pi[P_BODY] != i) continue;
+      if (pi[P_OVR] >= 0 || pi[P_BODY] != i) continue;
       const int nv = pi[P_NV];
       const float* gpx = gwx + p * MAX_V;
       const float* gpy = gwy + p * MAX_V;
@@ -742,7 +742,7 @@ extern "C" int fused_step_bwd(
     const float* body_im, const float* body_ii,
     const int32_t* joint_body, const float* joint_f,
     const int32_t* body_lanes, float* scratch,
-    int P, int npairs, int lanes, int V, int override_bits, int symplectic,
+    int P, int npairs, int lanes, int V, int symplectic,
     float gdx, float gdy,
     int B, int C, int n, int J, int iterations, int position_iterations,
     float dt, float baumgarte, float slop, float baumgarte_dt,
@@ -752,9 +752,9 @@ extern "C" int fused_step_bwd(
   const size_t smem =
       (size_t)W * BwdSmem(C, n, P, npairs, R).words * sizeof(float);
   // lanes: what the pairs' kinds give, two a pp pair and one any other
-  if (n > MAX_BODIES || P > MAX_PARTS || V > MAX_V || C != lanes ||
-      lanes < npairs || lanes > 2 * npairs || B <= 0 || R < 1 || R > MAX_V ||
-      W < 1 || W > MAX_WORLDS_PER_BLOCK || smem > SMEM_LIMIT) {
+  if (V > MAX_V || C != lanes || lanes < npairs || lanes > 2 * npairs ||
+      B <= 0 || R < 1 || R > MAX_V || W < 1 || W > MAX_WORLDS_PER_BLOCK ||
+      smem > SMEM_LIMIT) {
     return (int)cudaErrorInvalidValue;
   }
   if (smem > 48 * 1024) {
@@ -768,7 +768,7 @@ extern "C" int fused_step_bwd(
                      C, n, J, iterations, position_iterations,
                      dt, baumgarte, slop, baumgarte_dt, max_bias, has_max_bias};
   const StepArgs st{px, py, vx, vy, ang, om, tx, ty, part_i, part_lv, pair_i,
-                    pair_f, P, npairs, V, override_bits, symplectic, gdx, gdy};
+                    pair_f, P, npairs, V, symplectic, gdx, gdy};
   const StepCots cot{gpx, gpy, gvx, gvy, gang, gom};
   const StepGrads out{dpx, dpy, dvx, dvy, dang, dom, dtx, dty};
   const int rows = StepTape(C, n, iterations, position_iterations).rows;

@@ -30,7 +30,6 @@ plane-space rollouts loop over :func:`physics_core`.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -39,6 +38,7 @@ import torch
 from parallax_tpu_torch.dynamics.bodies import BodyState
 from parallax_tpu_torch.dynamics.impulses import ContactSolverConfig
 from parallax_tpu_torch.engine.collider import BROADPHASE_MARGIN
+from parallax_tpu_torch.geometry.math import _clip_c, _const, _max_c, _min_c  # noqa: F401
 from parallax_tpu_torch.geometry.shapes import CIRCLE, POLYGON, edge_mask_for
 
 INF = float("inf")
@@ -91,29 +91,6 @@ def _from_soa(s: _SoA) -> BodyState:
 
 def _rsqrt_safe(x):
     return torch.rsqrt(torch.where(x <= 0, 1.0, x))
-
-
-@functools.lru_cache(maxsize=None)
-def _const(c: float, dtype: torch.dtype) -> torch.Tensor:
-    """``c`` as a 0-dim CPU tensor, made once: a CUDA op takes it as a scalar."""
-    return torch.tensor(c, dtype=dtype)
-
-
-def _max_c(x, c: float):
-    """``jnp.maximum(x, c)`` against a constant: the value and NaN of
-    ``torch.clamp(x, min=c)``, but a tie splits the cotangent half and half,
-    as in JAX (``torch.clamp`` passes all of it)."""
-    return torch.maximum(x, _const(c, x.dtype))
-
-
-def _min_c(x, c: float):
-    """``jnp.minimum(x, c)`` against a constant; see :func:`_max_c`."""
-    return torch.minimum(x, _const(c, x.dtype))
-
-
-def _clip_c(x, lo: float, hi: float):
-    """``jnp.clip(x, lo, hi)`` against constants; see :func:`_max_c`."""
-    return _min_c(_max_c(x, lo), hi)
 
 
 # ---------------------------------------------------------------------------
@@ -710,14 +687,15 @@ def check_batched_support(config, what: str = "the batch-minor path") -> None:
     if config.narrowphase != "sat":
         raise NotImplementedError(
             f"{what} supports narrowphase='sat' only, got "
-            f"{config.narrowphase!r}: the per-world reference path is not "
-            "ported yet (ROADMAP Queue 1 item 11)"
+            f"{config.narrowphase!r}, as the JAX package's batched path does: "
+            "World.detect_contacts runs it; the per-world World.step is not "
+            "ported yet (ROADMAP Queue 1 item 11b)"
         )
     if config.solver_mode != "block":
         raise NotImplementedError(
             f"{what} supports solver_mode='block' only, got "
             f"{config.solver_mode!r}: the per-world solvers are not ported "
-            "yet (ROADMAP Queue 1 item 11)"
+            "yet (ROADMAP Queue 1 item 11b)"
         )
 
 

@@ -5,8 +5,10 @@ table and float32 parameter tensors, and moves every static table the
 batched step reads (vertex tables, lane-to-body indices, the contact
 kernel's operands) to ``device`` (the GPU unless the caller asks for the
 CPU) once.  The batched step itself is
-``engine.batched.physics_core``; the per-world ``World.step`` is not ported
-yet (ROADMAP Queue 1 item 11).
+``engine.batched.physics_core``.  ``World.detect_contacts`` runs the
+per-world collide (``engine.collider.collide``) under either narrow phase
+on states with leading batch axes; the per-world ``World.step`` is not
+ported yet (ROADMAP Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 from parallax_tpu_torch.dynamics.bodies import BodyParams, BodyState
 from parallax_tpu_torch.dynamics.impulses import DEFAULT_SOLVER, ContactSolverConfig
 from parallax_tpu_torch.dynamics.joints import Joints
-from parallax_tpu_torch.engine.collider import PairTable, build_pair_table
+from parallax_tpu_torch.engine.collider import PairTable, build_pair_table, collide
+from parallax_tpu_torch.geometry.contacts import Contact
 from parallax_tpu_torch.geometry.shapes import Parts, ShapeSpec
 from parallax_tpu_torch.utils.device import resolve as resolve_device
 
@@ -29,13 +32,15 @@ from parallax_tpu_torch.utils.device import resolve as resolve_device
 class WorldConfig:
     """Static world configuration: the fields the batched step reads.
 
-    The per-world path's ``relaxation``, ``joint_mode`` and
-    ``joint_iterations`` come with it (ROADMAP Queue 1 item 11)."""
+    ``narrowphase="gjk_epa"`` runs in ``World.detect_contacts``; the
+    batched step refuses it, as the JAX package's does.  The per-world
+    step's ``relaxation``, ``joint_mode`` and ``joint_iterations`` come
+    with it (ROADMAP Queue 1 item 11b)."""
 
     dt: float = 0.01
     gravity: tuple = (0.0, 0.0)
     integrator: str = "reference"  # "reference" | "symplectic"
-    narrowphase: str = "sat"  # the batched path runs "sat" only
+    narrowphase: str = "sat"  # "sat" | "gjk_epa"; the batched path runs "sat" only
     # AABB broad-phase pre-mask on the polygon pair groups
     broadphase: bool = True
     solver_mode: str = "block"  # the batched path runs "block" only
@@ -158,3 +163,19 @@ class World:
 
         build_static_tables(world)
         return world, state
+
+    def world_parts(self, state: BodyState) -> Parts:
+        """The parts in the world frame at ``state`` (``pos`` ``[..., n, 2]``,
+        ``angle`` ``[..., n]``)."""
+        return self.parts.to_world(state.pos, torch.cos(state.angle), torch.sin(state.angle))
+
+    def detect_contacts(self, state: BodyState) -> Contact:
+        """The contact buffer ``[..., C]`` of ``state``: every pair group's
+        contact function under the world's narrow phase and broadphase
+        (``engine.collider.collide``)."""
+        return collide(
+            self.world_parts(state),
+            self.table,
+            narrowphase=self.config.narrowphase,
+            broadphase=self.config.broadphase,
+        )

@@ -14,7 +14,8 @@ The contact solve runs as the CUDA kernel on a GPU
 (``WorldConfig.use_cuda_solver``).  ``BilliardsConfig(use_cuda_fused=True)``
 runs the whole step as the fused kernel (``ops/fused_step.py``, the twin of
 ``use_pallas_fused``) instead, and trains through its reverse pass: it
-takes at most 16 parts (``n_object`` up to 11).
+runs any ``n_object`` (billiards48, 52 parts and C=1320 lanes, keeps the
+forward's lane fields in scratch, ``contact_solver.fields_plan``).
 
 Not ported: ``BilliardsConfig.rolled`` (``engine/rolled.py``, which the
 port does not take over) and the per-world ``reset_fn``/``step_fn``
@@ -70,7 +71,7 @@ class BilliardsConfig:
     solver_iterations: int = 4
     position_iterations: int = 2
     # run the whole physics step as the fused CUDA kernel (cc/cb lanes, and
-    # their reverse pass under autograd); at most 16 parts
+    # their reverse pass under autograd), for any n_object
     use_cuda_fused: bool = False
     # the JAX package's offset-rolled all-pairs physics (engine/rolled.py):
     # not ported, so True raises

@@ -10,7 +10,11 @@ Every convex part is one row of a fixed-shape table:
 * ``nverts``, ``body`` -- static topology (owning body index)
 
 ``verts`` and ``radius`` are float32 tensors; ``Parts.to`` moves them to a
-device once, when the world is built.
+device once, when the world is built.  ``Parts.to_world`` gives the
+world-frame table (leading batch axes allowed), on which the supports,
+containment tests and edges below, GJK/EPA (``geometry/gjk.py``,
+``geometry/epa.py``) and the contact functions (``geometry/contacts.py``)
+work.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from parallax_tpu_torch.geometry.math import order_clockwise
+from parallax_tpu_torch.geometry.math import order_clockwise, safe_normalize
 
 CIRCLE = 0
 BOX = 1  # axis-aligned box
@@ -71,6 +75,13 @@ def polygon(vertices) -> ShapeSpec:
     return ShapeSpec(kind=POLYGON, verts=order_clockwise(v), radius=0.0)
 
 
+def regular_polygon(n: int, radius: float, position=(0.0, 0.0)) -> ShapeSpec:
+    """Regular ``n``-gon of circumradius ``radius`` centred at ``position``."""
+    ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    v = np.stack([np.cos(ang), np.sin(ang)], axis=-1) * radius + np.asarray(position)
+    return polygon(v)
+
+
 @dataclasses.dataclass(frozen=True)
 class Parts:
     """SoA table of convex parts (local frame)."""
@@ -111,10 +122,124 @@ class Parts:
             body=tuple(int(b) for b in body_index),
         )
 
+    @property
+    def max_verts(self) -> int:
+        return self.verts.shape[-2]
+
     def to(self, device) -> "Parts":
         return dataclasses.replace(
             self, verts=self.verts.to(device), radius=self.radius.to(device)
         )
+
+    def replace(self, **kw) -> "Parts":
+        return dataclasses.replace(self, **kw)
+
+    def to_world(self, pos, cos, sin, rotate_circles: bool = True) -> "Parts":
+        """All parts in the world frame from per-body poses: ``pos``
+        ``[..., n_bodies, 2]``, ``cos``/``sin`` ``[..., n_bodies]``.  A
+        polygon takes the full rigid transform, a box only the translation
+        (boxes live on bodies that do not rotate), a circle's centre offset
+        is rotated then translated (``rotate_circles=False``: translated
+        only, as the reference does)."""
+        body = list(self.body)
+        pb = pos[..., body, :]  # [..., P, 2]
+        c = cos[..., body][..., None]  # [..., P, 1]
+        s = sin[..., body][..., None]
+        v = self.verts
+        rotated = torch.stack([c * v[..., 0] - s * v[..., 1],
+                               s * v[..., 0] + c * v[..., 1]], dim=-1)
+        rot = [k == POLYGON or (rotate_circles and k == CIRCLE) for k in self.kind]
+        sel = torch.tensor(rot, device=v.device)[:, None, None]
+        return self.replace(verts=torch.where(sel, rotated, v) + pb[..., None, :])
+
+    def extents(self):
+        """Conservative AABB per part: ``(lower, upper)``, each ``[..., P, 2]``."""
+        v = self.verts
+        dev = v.device
+        is_circle = torch.tensor([k == CIRCLE for k in self.kind], device=dev)[:, None]
+        is_box = torch.tensor([k == BOX for k in self.kind], device=dev)[:, None]
+        poly_lo = torch.amin(v, dim=-2)
+        poly_hi = torch.amax(v, dim=-2)
+        circ_lo = v[..., 0, :] - self.radius[..., None]
+        circ_hi = v[..., 0, :] + self.radius[..., None]
+        lo = torch.where(is_circle, circ_lo, torch.where(is_box, v[..., 0, :], poly_lo))
+        hi = torch.where(is_circle, circ_hi, torch.where(is_box, v[..., 1, :], poly_hi))
+        return lo, hi
+
+    def centers(self):
+        """AABB midpoint per part ``[..., P, 2]``."""
+        lo, hi = self.extents()
+        return 0.5 * (lo + hi)
+
+
+# ---------------------------------------------------------------------------
+# supports, containment and edges over one part's gathered geometry:
+# ``verts`` [..., V, 2] (and ``radius`` [...]), the kind chosen by the
+# caller; the innermost primitive of GJK and EPA
+# ---------------------------------------------------------------------------
+
+
+def support_polygon(verts, direction):
+    """Farthest vertex along ``direction`` (``[..., 2]``); repeat-padding
+    keeps an unmasked argmax exact.  The first of tied vertices wins."""
+    dots = torch.sum(verts * direction[..., None, :], dim=-1)
+    idx = torch.argmax(dots, dim=-1)
+    vb = verts.expand(*dots.shape, 2)
+    return torch.take_along_dim(vb, idx[..., None, None], dim=-2)[..., 0, :]
+
+
+def support_circle(center, radius, direction):
+    """``center + r * dir / |dir|``."""
+    return center + radius[..., None] * safe_normalize(direction)
+
+
+def support_box(lower, upper, direction):
+    """The corner on ``direction``'s side, per coordinate."""
+    return torch.where(direction >= 0, upper, lower)
+
+
+def support_any(kind: int, verts, radius, direction):
+    """The support of a part of static ``kind``."""
+    if kind == CIRCLE:
+        return support_circle(verts[..., 0, :], radius, direction)
+    if kind == BOX:
+        return support_box(verts[..., 0, :], verts[..., 1, :], direction)
+    return support_polygon(verts, direction)
+
+
+def contains_circle(center, radius, point, eps=1e-6):
+    return torch.sum((point - center) ** 2, dim=-1) <= (radius + eps) ** 2
+
+
+def contains_box(lower, upper, point, eps=1e-6):
+    return torch.all((point >= lower - eps) & (point <= upper + eps), dim=-1)
+
+
+def contains_polygon(verts, edge_mask, point):
+    """All real edges (``edge_mask`` ``[..., V]``) see ``point`` on one
+    side; a zero sign matches either side."""
+    nxt = torch.roll(verts, shifts=-1, dims=-2)
+    e = verts - nxt
+    n = torch.stack([-e[..., 1], e[..., 0]], dim=-1)
+    d = torch.sum(n * (point[..., None, :] - verts), dim=-1)
+    sgn = torch.sign(d)
+    pos_ok = torch.all(torch.where(edge_mask, sgn >= 0, True), dim=-1)
+    neg_ok = torch.all(torch.where(edge_mask, sgn <= 0, True), dim=-1)
+    return pos_ok | neg_ok
+
+
+def polygon_edges(verts):
+    """Edges as ``(start, end)``, each ``[..., V, 2]``, padded ones too."""
+    return verts, torch.roll(verts, shifts=-1, dims=-2)
+
+
+def box_corners(lower, upper):
+    """The 4 corners ``[..., 4, 2]``: upper, (ux, ly), lower, (lx, uy)."""
+    ux, uy = upper[..., 0], upper[..., 1]
+    lx, ly = lower[..., 0], lower[..., 1]
+    return torch.stack([torch.stack([ux, uy], dim=-1), torch.stack([ux, ly], dim=-1),
+                        torch.stack([lx, ly], dim=-1), torch.stack([lx, uy], dim=-1)],
+                       dim=-2)
 
 
 def edge_mask_for(nverts: int, max_verts: int) -> np.ndarray:

@@ -145,12 +145,12 @@ _SIGNATURES = {
         + [_P]  # active (out)
         + [_P] * 4  # part_i, part_lv, pair_i, pair_f
         + [_P] * 9  # the solver operands, as for contact_solve_fwd
-        + [_P]  # body_lanes
-        + [_I] * 6  # P, pairs, lanes, V, override_bits, symplectic
+        + [_P] * 2  # body_lanes, scratch
+        + [_I] * 5  # P, pairs, lanes, V, symplectic
         + [_F] * 2  # gravity x and y times dt
         + [_I] * 6  # B, C, n, J, iterations, position_iterations
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
-        + [_I] * 2  # has_max_bias, worlds_per_block
+        + [_I] * 3  # has_max_bias, fields_in_smem, worlds_per_block
         + [_P]  # stream
     ),
     "fused_step_bwd": (
@@ -162,7 +162,7 @@ _SIGNATURES = {
         + [_P] * 4  # part_i, part_lv, pair_i, pair_f
         + [_P] * 9  # the solver operands, as for contact_solve_fwd
         + [_P] * 2  # body_lanes, scratch
-        + [_I] * 6  # P, pairs, lanes, V, override_bits, symplectic
+        + [_I] * 5  # P, pairs, lanes, V, symplectic
         + [_F] * 2  # gravity x and y times dt
         + [_I] * 6  # B, C, n, J, iterations, position_iterations
         + [_F] * 5  # dt, baumgarte, slop, baumgarte_dt, max_bias
@@ -170,9 +170,8 @@ _SIGNATURES = {
         + [_P]  # stream
     ),
     "contact_solver_num_fields": [],
-    "contact_solver_max_bodies": [],
     "contact_solver_fwd_smem_bytes": [_I] * 3,  # C, n, fields_in_smem
-    "fused_step_fwd_smem_bytes": [_I] * 3,  # C, n, P
+    "fused_step_fwd_smem_bytes": [_I] * 4,  # C, n, P, fields_in_smem
     "contact_solver_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations
     "contact_solver_bwd_smem_bytes": [_I] * 2,  # C, n
     "fused_step_bwd_scratch_rows": [_I] * 4,  # C, n, iterations, position_iterations

@@ -231,16 +231,32 @@ def worlds_per_block(per_world: int, kernel: str) -> int:
     return max(1, min(WORLDS_PER_BLOCK, SMEM_LIMIT // per_world))
 
 
-def solve_plan(lib, C: int, n: int) -> tuple:
-    """The solve kernel's launch plan, ``(fields_in_smem, worlds a block)``:
-    a world's lane fields and impulses (``NUM_FIELDS`` x C floats) sit in
-    shared memory beside its body rows where ``FIELDS_MIN_WORLDS`` worlds a
-    block still fit with them (every world of the repo but billiards48:
-    C=1320, 52 bodies), else in the wrapper's scratch."""
-    inside = lib.contact_solver_fwd_smem_bytes(C, n, 1)
+def fields_plan(smem_bytes, kernel: str) -> tuple:
+    """A forward kernel's launch plan, ``(fields_in_smem, worlds a block)``,
+    from ``smem_bytes(fields_in_smem)``, the bytes a world takes with (1)
+    and without (0) its lane fields and impulses (``NUM_FIELDS`` x C
+    floats): they sit in shared memory beside the world's state where
+    ``FIELDS_MIN_WORLDS`` worlds a block still fit with them, else in the
+    wrapper's world-major scratch (billiards48, C=1320 lanes, and larger
+    worlds)."""
+    inside = smem_bytes(1)
     if SMEM_LIMIT // inside >= FIELDS_MIN_WORLDS:
-        return 1, worlds_per_block(inside, "contact_solve_fwd")
-    return 0, worlds_per_block(lib.contact_solver_fwd_smem_bytes(C, n, 0), "contact_solve_fwd")
+        return 1, worlds_per_block(inside, kernel)
+    return 0, worlds_per_block(smem_bytes(0), kernel)
+
+
+def solve_plan(lib, C: int, n: int) -> tuple:
+    """The solve kernel's launch plan, ``(fields_in_smem, worlds a
+    block)``: :func:`fields_plan` of its shared memory."""
+    return fields_plan(lambda f: lib.contact_solver_fwd_smem_bytes(C, n, f),
+                       "contact_solve_fwd")
+
+
+def field_scratch(lib, in_smem: int, C: int, B: int, device):
+    """The forward kernels' lane-field scratch ``[B, NUM_FIELDS * C]``, or
+    ``[B, 0]`` where the plan keeps the fields in shared memory."""
+    rows = 0 if in_smem else lib.contact_solver_num_fields() * C
+    return torch.empty((B, rows), dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -347,11 +363,6 @@ def _launch_operands(world, s, con, config):
     device = s.px.device
     C = world.table.n_contacts
     n, B = s.px.shape
-    if n > lib.contact_solver_max_bodies():
-        raise ValueError(
-            f"contact solver kernel: {n} bodies, at most "
-            f"{lib.contact_solver_max_bodies()}"
-        )
     for name, x in zip(s._fields, s):
         _check(name, x, (n, B), torch.float32, device)
     for name in _CON_PLANES:
@@ -391,8 +402,7 @@ def _solve_cuda(world, s, con, iterations, position_iterations, dt, config):
     device = s.px.device
     outs = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
     in_smem, W = solve_plan(lib, C, n)
-    rows = 0 if in_smem else lib.contact_solver_num_fields() * C
-    scratch = torch.empty((B, rows), dtype=torch.float32, device=device)
+    scratch = field_scratch(lib, in_smem, C, B, device)
     err = lib.contact_solve_fwd(
         *(_ptr(getattr(con, k)) for k in (*_CON_PLANES, "active")),
         *(_ptr(x) for x in s),

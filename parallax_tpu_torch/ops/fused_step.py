@@ -47,10 +47,6 @@ bwd_launches = 0
 # pair-group kernels the fused kernel and its reverse pass run: those of
 # the JAX fused kernel (pallas_step.py:81)
 FUSED_KERNELS = ("pp", "cc", "cb", "bb", "area_cb")
-# the kernels' limits (csrc/fused_step.cuh, contact_solver.cuh); the launch
-# refuses more as well
-MAX_PARTS = 16
-MAX_BODIES = 64
 # kinds of pair_i's Q_KIND column, in the order of csrc/fused_step.cuh's
 # PairKind
 _KINDS = {"pp": 0, "cc": 1, "cb": 2, "area_cb": 3, "bb": 4}
@@ -62,7 +58,8 @@ def supports_fused_step(world) -> bool:
     world with a ``pp`` group has the broadphase off (the kernel has no
     AABB pre-mask; circle and box lanes mask themselves, so a world without
     a ``pp`` group may keep it on: the rule of ``pallas_step.py:84-92``).
-    The kernels' size limits are :func:`check_fused_step`'s."""
+    The kernels take a world of any size whose launch plan fits a block's
+    shared memory (``contact_solver.worlds_per_block``)."""
     kernels = {g.kernel for g in world.table.groups}
     if not kernels <= set(FUSED_KERNELS):
         return False
@@ -72,15 +69,13 @@ def supports_fused_step(world) -> bool:
 
 
 def check_fused_step(world) -> None:
-    """Raise, saying why, unless the fused kernels run ``world`` on the card.
-
-    Beyond :func:`supports_fused_step`, a world may have at most
-    ``MAX_PARTS`` = 16 parts (the JAX kernel's own limit,
-    ``pallas_step.py:51``) and ``MAX_BODIES`` = 64 bodies.  So billiards with 47
-    object balls (52 parts) raises here, where the JAX package silently
-    takes its split step (``engine/batched.py:1158-1167``).  The reverse
-    pass walks back every kind of ``FUSED_KERNELS``, so the same gate
-    serves under autograd."""
+    """Raise, saying why, unless the fused kernels run ``world`` on the card:
+    the rule of :func:`supports_fused_step`, as the JAX gate
+    (``pallas_step.py:84-92``) has it, with no limit on parts or bodies.
+    The reverse pass walks back every kind of ``FUSED_KERNELS``, so the
+    same gate serves under autograd.  A world too large for one block's
+    shared memory raises at its launch plan
+    (``contact_solver.worlds_per_block``)."""
     from parallax_tpu_torch.engine.batched import check_batched_support
 
     check_batched_support(world.config, "the fused step")
@@ -89,17 +84,6 @@ def check_fused_step(world) -> None:
         raise ValueError(
             "the fused step kernel has no AABB pre-mask stage: build a world "
             "with polygon pairs with broadphase=False"
-        )
-    P = len(world.parts.nverts)
-    if P > MAX_PARTS:
-        raise ValueError(
-            f"the fused step kernel takes at most {MAX_PARTS} parts; this "
-            f"world has {P}: run it on the split step (use_cuda_fused=False)"
-        )
-    if world.n_bodies > MAX_BODIES:
-        raise ValueError(
-            f"the fused step kernel takes at most {MAX_BODIES} bodies; this "
-            f"world has {world.n_bodies}"
         )
 
 
@@ -121,12 +105,13 @@ def _check_kinds(world) -> set:
 
 class FusedOperands(NamedTuple):
     """Static kernel inputs of the step's geometry, on the world's device
-    (the counterpart of ``_static_step_info``).  The terrain override is a
-    per-call argument: the kernel reads the k-th overridden part, in
-    ``sorted(override)`` order as at ``pallas_step.py:158``, from rows
-    ``k * MAX_VERTS ...`` of the terrain planes."""
+    (the counterpart of ``_static_step_info``), for one set of overridden
+    parts: the kernel reads the k-th overridden part, in ``sorted(override)``
+    order as at ``pallas_step.py:158``, from rows ``k * MAX_VERTS ...`` of
+    the terrain planes; ``part_i``'s last column holds that k, or -1."""
 
-    part_i: torch.Tensor  # [P, 3] int32: owning body, rotates, vertices read
+    # [P, 4] int32: owning body, rotates, vertices read, override rank
+    part_i: torch.Tensor
     part_lv: torch.Tensor  # [P, MAX_VERTS, 2] f32 local vertices
     # [pairs, 8] int32: parts a, b, Va, Vb, edge-mask bits of a and b, first
     # lane, kind (_KINDS)
@@ -136,9 +121,11 @@ class FusedOperands(NamedTuple):
     pair_f: torch.Tensor
 
 
-def fused_operands(world) -> FusedOperands:
-    """Built once per world: each part's body, rotate flag and the number of
-    vertex rows its groups read, and per pair of the table, in lane order,
+def fused_operands(world, tparts=()) -> FusedOperands:
+    """Built once per world and set of overridden parts ``tparts`` (sorted):
+    each part's body, rotate flag, the number of vertex rows its groups read
+    and its rank in ``tparts`` (-1 where it is not overridden), and per pair
+    of the table, in lane order,
     its parts, the rows and edge masks (as bits) of the split collide's
     ``engine.batched._group_rows`` (a circle's centre and a box's ``lb``/
     ``ub`` for the one-lane kinds, as at ``pallas_step.py:108-113``), its
@@ -165,7 +152,10 @@ def fused_operands(world) -> FusedOperands:
                 radii.append([radius[a], radius[b]])
                 lane += _width(g.kernel)
         rotate = [int(k != BOX) for k in parts.kind]
-        part_i = np.stack([np.asarray(parts.body), rotate, nv], axis=1).astype(np.int32)
+        rank = np.full(P, -1, np.int32)
+        rank[list(tparts)] = np.arange(len(tparts))
+        part_i = np.stack([np.asarray(parts.body), rotate, nv, rank],
+                          axis=1).astype(np.int32)
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(world.device)
@@ -177,7 +167,7 @@ def fused_operands(world) -> FusedOperands:
             pair_f=t(np.asarray(radii, np.float32).reshape(-1, 2)),
         )
 
-    return world.static(("fused_operands",), build)
+    return world.static(("fused_operands", tuple(tparts)), build)
 
 
 def _bits(mask) -> int:
@@ -326,8 +316,9 @@ class _FusedStep(torch.autograd.Function):
 def _launch_operands(statics, s, tx, ty, plan):
     """Check the planes and the world; return the library, the pointers of
     the kernels' static operands, the scalar arguments the kernels end
-    with, and the shapes.  ``plan(lib, world, C, n, P, pairs)`` gives the
-    kernel's launch plan, which goes before the stream."""
+    with, the shapes and the launch plan.  ``plan(lib, world, C, n, P,
+    pairs)`` gives the kernel's launch plan, which goes before the
+    stream."""
     from parallax_tpu_torch.ops import _build
     from parallax_tpu_torch.ops.contact_solver import _check, _ptr, _tail, solver_operands
 
@@ -337,13 +328,13 @@ def _launch_operands(statics, s, tx, ty, plan):
     device = s.px.device
     C = world.table.n_contacts
     n, B = s.px.shape
-    P = len(world.parts.nverts)  # check_fused_step holds it to MAX_PARTS
+    P = len(world.parts.nverts)
     for name, x in zip(s._fields, s):
         _check(name, x, (n, B), torch.float32, device)
     for name, x in (("terrain x", tx), ("terrain y", ty)):
         _check(name, x, (len(tparts) * MAX_VERTS, B), torch.float32, device)
     sops = solver_operands(world, cfg.contact)
-    fops = fused_operands(world)
+    fops = fused_operands(world, tparts)
     for name, x in (*zip(sops._fields, sops), *zip(fops._fields, fops)):
         if x.device != device:
             raise ValueError(f"operand {name}: on {x.device}, expected {device}")
@@ -354,28 +345,31 @@ def _launch_operands(statics, s, tx, ty, plan):
         gx, gy = gx + accel[0], gy + accel[1]
     stream = torch.cuda.current_stream(device).cuda_stream
     pairs = len(fops.pair_i)
+    launch_plan = plan(lib, world, C, n, P, pairs)
     scalars = (
-        P, pairs, _lane_count(world), MAX_VERTS, sum(1 << p for p in tparts),
+        P, pairs, _lane_count(world), MAX_VERTS,
         int(cfg.integrator == "symplectic"), float(gx * dt), float(gy * dt),
         *_tail(world, cfg.solver_iterations, cfg.position_iterations, dt, cfg.contact,
-               B, C, n, stream, *plan(lib, world, C, n, P, pairs)),
+               B, C, n, stream, *launch_plan),
     )
     operands = (*(_ptr(x) for x in fops), *(_ptr(x) for x in sops))
-    return lib, operands, scalars, (C, n, B)
+    return lib, operands, scalars, (C, n, B), launch_plan
 
 
 def _step_cuda(statics, s, tx, ty):
     global launches
-    from parallax_tpu_torch.ops.contact_solver import _ptr, body_lanes
+    from parallax_tpu_torch.ops.contact_solver import _ptr, body_lanes, field_scratch
 
-    lib, operands, scalars, (C, n, B) = _launch_operands(statics, s, tx, ty, _fwd_plan)
+    lib, operands, scalars, (C, n, B), (in_smem, _) = _launch_operands(
+        statics, s, tx, ty, _fwd_plan)
     device = s.px.device
     outs = [torch.empty((n, B), dtype=torch.float32, device=device) for _ in range(6)]
     active = torch.empty((C, B), dtype=torch.bool, device=device)
+    scratch = field_scratch(lib, in_smem, C, B, device)
     err = lib.fused_step_fwd(
         *(_ptr(x) for x in s), _ptr(tx), _ptr(ty),
         *(_ptr(x) for x in outs), _ptr(active),
-        *operands, _ptr(body_lanes(statics[0])), *scalars,
+        *operands, _ptr(body_lanes(statics[0])), _ptr(scratch), *scalars,
     )
     if err != 0:
         raise RuntimeError(f"fused_step_fwd launch failed: CUDA error {err}")
@@ -413,11 +407,12 @@ def _pair_rows(world) -> int:
 
 
 def _fwd_plan(lib, world, C, n, P, pairs):
-    """The forward kernel's launch plan: its worlds per block
-    (``contact_solver.worlds_per_block``)."""
-    from parallax_tpu_torch.ops.contact_solver import worlds_per_block
+    """The forward kernel's launch plan, ``(fields_in_smem, worlds a
+    block)``: the solve kernel's rule (``contact_solver.fields_plan``) for
+    where its lane fields go."""
+    from parallax_tpu_torch.ops.contact_solver import fields_plan
 
-    return (worlds_per_block(lib.fused_step_fwd_smem_bytes(C, n, P), "fused_step_fwd"),)
+    return fields_plan(lambda f: lib.fused_step_fwd_smem_bytes(C, n, P, f), "fused_step_fwd")
 
 
 def _bwd_plan(lib, world, C, n, P, pairs):
@@ -434,7 +429,7 @@ def _fused_bwd_cuda(statics, s, tx, ty, grads):
     global bwd_launches
     from parallax_tpu_torch.ops.contact_solver import _check, _ptr, body_lanes
 
-    lib, operands, scalars, (C, n, B) = _launch_operands(statics, s, tx, ty, _bwd_plan)
+    lib, operands, scalars, (C, n, B), _ = _launch_operands(statics, s, tx, ty, _bwd_plan)
     device = s.px.device
     grads = [g.contiguous() for g in grads]
     for name, g in zip(s._fields, grads):

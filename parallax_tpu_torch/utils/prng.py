@@ -83,3 +83,39 @@ def uniform(keys, shape: tuple = (), minval: float = 0.0, maxval: float = 1.0):
     span = float(np.float32(maxval) - np.float32(minval))
     return torch.clamp((floats.double() * span + lo).float(), min=lo)
 
+
+
+# XLA's float32 erf_inv (chlo's ErfInv32, Giles' polynomials), which
+# jax.random.normal calls: the coefficients for w = -log1p(-x^2) < 5, then
+# for w >= 5
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv(x):
+    """XLA's float32 ``erf_inv`` of ``x`` in [-1, 1]: Giles' polynomial in
+    ``w``, each Horner step one fused multiply-add as XLA on the CPU emits
+    it (here in float64, rounded once).  ``torch.erfinv`` is another
+    approximation (up to 61 ulps away); this one is XLA's up to its
+    ``log1p`` and ``sqrt``, which XLA does not round correctly (1-2 ulps)."""
+    w = -torch.log1p(x * (-x))
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    coef = [torch.where(small, np.float32(a).item(), np.float32(b).item()).double()
+            for a, b in zip(_ERFINV_SMALL, _ERFINV_LARGE)]
+    p = coef[0]
+    for c in coef[1:]:
+        p = (c + p * w).float().double()
+    r = p.float() * x
+    return torch.where(x.abs() == 1, x * float("inf"), r)
+
+
+def normal(keys, shape: tuple = ()):
+    """``jax.random.normal`` (float32) over a batch of keys: a uniform draw
+    in (-1, 1), then ``sqrt(2) * erf_inv``, as jax does; within float32
+    ulps of jax's draws (see :func:`_erf_inv`)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(keys, shape, lo, 1.0)
+    return np.float32(np.sqrt(2)).item() * _erf_inv(u)

@@ -459,8 +459,10 @@ def test_fused_step_on_circle_lanes_refuses_autograd_on_card(billiards_env):
     kernel, and no solver kernel.  What the kernels do not run raises
     before any launch, under autograd or not: a world with a kind no fused
     kernel has (a circle on a polygon, cp: ValueError naming the split
-    step) and a world over the kernel's 16 parts.  Neither falls back to
-    the split step."""
+    step); it never falls back to the split step.  Billiards48 (52 parts,
+    over the 16 the kernels once refused) runs on the fused kernel, its
+    lane fields in scratch, held to the plain version (body planes within
+    1e-5, flags identical)."""
     world = billiards_env.world
     s = overlap_state(billiards_env, 256, 3, 1.0, 0.03, 0.02)
     vx = s.vx.clone().requires_grad_(True)
@@ -479,11 +481,16 @@ def test_fused_step_on_circle_lanes_refuses_autograd_on_card(billiards_env):
     for grad in (True, False):
         with pytest.raises(ValueError, match="split step"):
             fused_step.physics_core_fused(cp, sc._replace(px=sc.px.clone().requires_grad_(grad)))
-    big = Billiards(BilliardsConfig(n_object=47, use_cuda_fused=True), device="cuda")
-    sb = overlap_state(big, 128, 3, 1.0, 0.03, 0.02)
-    with pytest.raises(ValueError, match="at most 16 parts"):
-        fused_step.physics_core_fused(big.world, sb)
     assert (fused_step.launches, fused_step.bwd_launches) == (f0 + 2, b0 + 2)
+    big = Billiards(BilliardsConfig(n_object=47, use_cuda_fused=True), device="cuda")
+    sb = billiards_pairs_state(big, 128)
+    got, gc = fused_step.physics_core_fused(big.world, sb)
+    want, wc = fused_step.fused_step_plain(big.world, sb)
+    torch.cuda.synchronize()
+    assert torch.equal(gc.active, wc.active) and wc.active.any()
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=ATOL)
+    assert (fused_step.launches, fused_step.bwd_launches) == (f0 + 3, b0 + 2)
     assert contact_solver.launches == s0
 
 
@@ -813,17 +820,22 @@ def test_solver_reverse_pass_on_billiards48_on_card(card):
 @pytest.mark.cuda
 def test_reverse_pass_plan_refuses_a_world_over_the_shared_memory_limit_on_card(card):
     """The kernels' launch plan: every world of the repo fits a block
-    (billiards48's 52 bodies and 1320 lanes included: its solve keeps the
-    lane fields in scratch, the crate pile's in shared memory), and a world
+    (billiards48's 52 bodies and 1320 lanes included: its solve and its
+    fused forward keep the lane fields in scratch, 5 and 3 worlds a block,
+    and its fused reverse pass takes 2 worlds a block; the crate pile's
+    forwards keep theirs in shared memory, 8 worlds a block), and a world
     whose shared memory alone exceeds the H100's 227 KB a block (20,000
     lanes) raises ValueError naming the limit, never a launch."""
     from parallax_tpu_torch.ops import _build
 
     lib = _build.load()
-    assert contact_solver.solve_plan(lib, 1320, 52)[0] == 0
+    assert contact_solver.solve_plan(lib, 1320, 52) == (0, 5)
     assert contact_solver.solve_plan(lib, 88, 14) == (1, 8)
+    fwd = contact_solver.fields_plan
+    assert fwd(lambda f: lib.fused_step_fwd_smem_bytes(1320, 52, 52, f), "fused_step_fwd") == (0, 3)
+    assert fwd(lambda f: lib.fused_step_fwd_smem_bytes(88, 14, 14, f), "fused_step_fwd") == (1, 8)
     assert contact_solver.worlds_per_block(
-        lib.fused_step_fwd_smem_bytes(88, 14, 14), "fused_step_fwd") == 8
+        lib.fused_step_bwd_smem_bytes(1320, 52, 52, 1320, 2), "fused_step_bwd") == 2
     assert contact_solver.worlds_per_block(
         lib.contact_solver_bwd_smem_bytes(1320, 52), "contact_solve_bwd") >= 1
     assert contact_solver.worlds_per_block(

@@ -170,22 +170,39 @@ def test_gates_follow_jax_and_refuse_autograd_on_circle_lanes(billiards):
 
 
 def test_a_world_over_the_part_limit_raises():
-    """Billiards with 47 object balls has 52 parts, over the kernel's 16:
-    the gate raises, where the JAX package quietly takes its split step."""
-    world = Billiards(BilliardsConfig(n_object=47, use_cuda_fused=True), device="cpu").world
-    assert len(world.parts.nverts) == 52 and fused_step.supports_fused_step(world)
-    with pytest.raises(ValueError, match="at most 16 parts"):
-        fused_step.check_fused_step(world)
-    Billiards(BilliardsConfig(n_object=11, use_cuda_fused=True), device="cpu")
-    assert len(Billiards(BilliardsConfig(n_object=11), device="cpu").world.parts.nverts) == 16
+    """Billiards with 47 object balls (52 parts, 52 bodies, C=1320), over
+    the 16 parts the kernels once refused, now passes the gate as it passes
+    JAX's (``pallas_step.py:84-93`` has no part limit), and its fused plain
+    step equals its split step over 3 steps at B=4: the circle lanes have
+    no SAT axis to lose, so the two are one computation."""
+    from parallax_tpu_torch.engine import batched as tb
+    from torch_scenarios import billiards_pairs_state
+
+    fused = Billiards(BilliardsConfig(n_object=47, use_cuda_fused=True), device="cpu")
+    split = Billiards(BilliardsConfig(n_object=47), device="cpu")
+    world = fused.world
+    assert len(world.parts.nverts) == 52 and world.table.n_contacts == 1320
+    assert fused_step.supports_fused_step(world)
+    fused_step.check_fused_step(world)
+    s = billiards_pairs_state(fused, 4)
+    a = b = s
+    for _ in range(3):
+        a, con = fused_step.physics_core_fused(world, a)
+        b, cb = tb.physics_core(split.world, b)
+        assert torch.equal(con.active, cb.active)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+    assert con.active.any()
 
 
 def test_python_limits_match_the_kernel_sources():
-    """The gate's limits are the kernels' own: the constants of
-    ``csrc/fused_step.cuh`` and ``csrc/contact_solver.cuh`` equal
-    ``MAX_PARTS``, ``MAX_BODIES`` and ``geometry.shapes.MAX_VERTS``; and the
-    pair kinds the host writes into ``pair_i`` are ``PairKind``'s, in its
-    order, and they are the JAX fused kernel's."""
+    """The kernels' one shape limit is the shapes' own: ``csrc/fused_step.cuh``'s
+    ``MAX_V`` equals ``geometry.shapes.MAX_VERTS``, and no source or
+    wrapper keeps a part or body limit; the pair kinds the host writes into
+    ``pair_i`` are ``PairKind``'s, in its order, and they are the JAX fused
+    kernel's; and ``part_i``'s columns are ``PartCol``'s, its last the
+    override rank (``P_OVR``) that the host fills from
+    ``sorted(override)``."""
     import re
     from pathlib import Path
 
@@ -197,9 +214,20 @@ def test_python_limits_match_the_kernel_sources():
         (v,) = re.findall(rf"constexpr int {name} = (\d+);", (csrc / header).read_text())
         return int(v)
 
-    assert const("fused_step.cuh", "MAX_PARTS") == fused_step.MAX_PARTS
     assert const("fused_step.cuh", "MAX_V") == MAX_VERTS
-    assert const("contact_solver.cuh", "MAX_BODIES") == fused_step.MAX_BODIES
+    ops_dir = csrc.parent / "ops"
+    for f in (*csrc.iterdir(), *ops_dir.glob("*.py")):
+        for name in ("MAX_PARTS", "MAX_BODIES", "max_bodies", "override_bits"):
+            assert name not in f.read_text(), (f.name, name)
+    (cols,) = re.findall(r"enum PartCol \{([^}]*)\}", (csrc / "fused_step.cuh").read_text())
+    cols = [c.strip() for c in cols.split(",")]
+    assert cols == ["P_BODY", "P_ROTATE", "P_NV", "P_OVR", "PART_COLS"]
+    world = Billiards(BilliardsConfig(use_cuda_fused=True), device="cpu").world
+    for tparts in ((), (2, 5)):
+        part_i = fused_step.fused_operands(world, tparts).part_i
+        assert part_i.shape[1] == cols.index("PART_COLS")
+        assert part_i[:, cols.index("P_OVR")].tolist() == [
+            tparts.index(p) if p in tparts else -1 for p in range(len(part_i))]
     (enum,) = re.findall(r"enum PairKind \{([^}]*)\}", (csrc / "fused_step.cuh").read_text())
     kinds = {k.strip(): v for v, k in enumerate(enum.split(","))}
     assert kinds == {"K_" + k.upper(): v for k, v in fused_step._KINDS.items()}

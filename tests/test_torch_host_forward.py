@@ -113,3 +113,38 @@ def test_host_forward_kernels_place_nan_as_the_plain_versions(host, kernel):
         assert torch.equal(torch.isnan(g), torch.isnan(w))
         torch.testing.assert_close(g[:, finite], w[:, finite], rtol=0, atol=1e-5)
     assert any(torch.isnan(w[:, 3]).any() for w in want)
+
+
+@pytest.mark.parametrize("label", ["billiards48 pairs", "billiards61 pairs",
+                                   "override (part 32)"])
+def test_host_kernels_run_worlds_past_the_old_part_and_body_limits(host, label):
+    """Worlds the kernels refused before (more than 16 parts or 64 bodies),
+    at B=4, against the plain versions at the bars of
+    ``test_torch_host_kernels.py``: billiards48 (52 parts, C=1320; the
+    fused forward keeps its lane fields in scratch, 3 worlds a block, as
+    the solve does), billiards61 (65 bodies, C=2074) with all four kernels,
+    and the override world, whose overridden slab is part 32 (rank 0 in
+    ``part_i``'s last column), with all four too (its solver reverse
+    pass's penetration cotangents, sums that cancel at the crates' face
+    contacts, with 8 float32 ulps of each plane's largest value added to
+    the bar, as on RoboCup)."""
+    from parallax_tpu_torch.ops import _build, fused_step
+
+    world, s, override, cot = host.scenario(label, 4)
+    C, n, P = world.table.n_contacts, world.n_bodies, len(world.parts.nverts)
+    plan = fused_step._fwd_plan(_build.load(), world, C, n, P, 0)
+    if label.startswith("billiards48"):
+        assert (P, C, plan) == (52, 1320, (0, 3))
+    if label.startswith("override"):
+        (slab,) = override
+        assert slab == 32
+        part_i = fused_step.fused_operands(world, (slab,)).part_i
+        assert part_i[:, 3].tolist() == [0 if p == slab else -1 for p in range(P)]
+    else:
+        assert n > 64 or P > 16
+    r = host.check(world, s, override, cot)
+    assert r["flags"] and r["active"] > 0, r
+    assert r["fused"] <= host.ATOL and r["fused_bwd"][0] <= 1.0, r
+    assert r["solve"] <= host.ATOL and r["solve_bwd"][0] <= 1.0, r
+    pen = r["pen_ulps"] if label.startswith("override") else r["pen"][0]
+    assert pen <= 1.0, r

@@ -95,16 +95,14 @@ def tie_fused_case(env, device="cpu"):
     return s, override, cotangents(env.world.n_bodies, 1, device=device)
 
 
-def mixed_world(device="cpu"):
-    """A fused-step world that mixes pair groups: two polygons (one static),
-    two circles and a static box, the circles filtered from the polygons
-    and the moving polygon from the box.  Its groups are cc, cb and pp, in
-    that lane order (1 + 2 + 2 lanes)."""
-    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
-    from parallax_tpu_torch.geometry.shapes import box, circle, polygon
+# the mixed world's filtered body pairs
+MIXED_FILTER = [(0, 2), (0, 3), (1, 2), (1, 3), (0, 4)]
 
+
+def mixed_bodies(BodyDef, box, circle, polygon):
+    """The mixed world's bodies, in either package's types."""
     sq = [(-0.3, -0.3), (0.3, -0.3), (0.3, 0.3), (-0.3, 0.3)]
-    bodies = [
+    return [
         BodyDef(shapes=[polygon(sq)], position=(0.0, 1.0)),
         BodyDef(shapes=[polygon([(-2, -0.5), (2, -0.5), (2, 0.5), (-2, 0.5)])],
                 mass=np.inf, inertia=np.inf, position=(0.0, 0.3)),
@@ -112,9 +110,20 @@ def mixed_world(device="cpu"):
         BodyDef(shapes=[circle(0.2)], position=(3.3, 0.0)),
         BodyDef(shapes=[box((2.0, -0.5), (5.0, -0.2))], mass=np.inf, inertia=np.inf),
     ]
-    return World.build(bodies, WorldConfig(broadphase=False, use_cuda_fused=True),
-                       collision_filter=[(0, 2), (0, 3), (1, 2), (1, 3), (0, 4)],
-                       device=device)
+
+
+def mixed_world(device="cpu", **config):
+    """A fused-step world that mixes pair groups: two polygons (one static),
+    two circles and a static box, the circles filtered from the polygons
+    and the moving polygon from the box.  Its groups are cc, cb and pp, in
+    that lane order (1 + 2 + 2 lanes).  ``config`` updates its
+    WorldConfig (broadphase off, the fused step)."""
+    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
+    from parallax_tpu_torch.geometry.shapes import box, circle, polygon
+
+    cfg = {"broadphase": False, "use_cuda_fused": True, **config}
+    return World.build(mixed_bodies(BodyDef, box, circle, polygon), WorldConfig(**cfg),
+                       collision_filter=MIXED_FILTER, device=device)
 
 
 def mixed_state(world, state, B, seed=0):
@@ -259,11 +268,13 @@ _PAIRS = np.float32([[-0.6, -0.039], [-0.6, 0.039], [-0.2, -0.039], [-0.2, 0.039
 
 def _pair_grid(n):
     """A layout of n balls for a table with more than 8: touching pairs
-    0.07 apart (0.01 deep) on a 6 by 4 grid of centres 0.3 and 0.2 apart,
-    clear of each other and of the cushions."""
+    0.07 apart (0.01 deep) on a 6 by 4 grid of centres 0.3 and 0.2 apart
+    (an 8 by 4 grid 0.225 and 0.2 apart for more than 48 balls), clear of
+    each other and of the cushions."""
     k = np.arange(n) // 2
-    x = -0.75 + 0.3 * (k % 6)
-    y = -0.3 + 0.2 * (k // 6) + np.where(np.arange(n) % 2, 0.035, -0.035)
+    cols = 6 if n <= 48 else 8
+    x = -0.75 + (0.3 if cols == 6 else 0.225) * (k % cols)
+    y = -0.3 + 0.2 * (k // cols) + np.where(np.arange(n) % 2, 0.035, -0.035)
     return np.stack([x, y], axis=1).astype(np.float32)
 
 
@@ -623,3 +634,94 @@ def pair_world(kind, device="cpu", **config):
     world, st = World.build(bodies, WorldConfig(**config), device=device)
     assert [g.kernel for g in world.table.groups] == [kind]
     return world, tb._to_soa(type(st)(*(x[None] for x in st)))
+
+
+# the slab the override world's crates rest on: a convex octagon, top at y=0
+_SLAB = np.float32([(-4.0, -1.0), (4.0, -1.0), (4.2, -0.5), (4.0, 0.0), (2.0, 0.02),
+                    (-2.0, 0.02), (-4.0, 0.0), (-4.2, -0.5)])
+_OVR_CRATES = ((-1.5, 0.32), (0.0, 0.32), (1.5, 0.32))  # centres at rest
+
+
+def override_world(device="cpu", fused=True, posts=32):
+    """A lander-style world whose overridden part sits at part index
+    ``posts`` (32 by default, past a 32-bit mask): one static body of
+    ``posts`` small square polygon posts far below the scene, then the
+    static slab (an 8-vertex polygon, the part a caller overrides with
+    per-world vertices, as the lander's terrain), then three dynamic
+    polygon crates (half-width 0.3) side by side on the slab, so that each
+    body's touching lanes are its B side's (its sums take one order in the
+    kernel and in the plain version's ``index_add_``).  Broadphase off: every crate meets every post, the slab and the
+    other crates as a ``pp`` pair (C=2 x (3 x 33 + 3) = 204 lanes).
+    Returns ``(world, slab part index)``."""
+    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
+    from parallax_tpu_torch.geometry.shapes import polygon
+
+    sq = [(-0.1, -0.1), (0.1, -0.1), (0.1, 0.1), (-0.1, 0.1)]
+    wall = dict(mass=np.inf, inertia=np.inf, friction=0.6, elasticity=0.1)
+    bodies = [BodyDef(shapes=[polygon([(x + 0.5 * k, y - 30.0) for x, y in sq])
+                              for k in range(posts)], **wall),
+              BodyDef(shapes=[polygon(_SLAB)], **wall)]
+    crate = [(-0.3, -0.3), (0.3, -0.3), (0.3, 0.3), (-0.3, 0.3)]
+    for pos in _OVR_CRATES:
+        bodies.append(BodyDef(shapes=[polygon(crate)], mass=1.0, inertia=0.06,
+                              position=pos, friction=0.6, elasticity=0.1))
+    cfg = WorldConfig(dt=0.01, gravity=(0.0, -9.8), broadphase=False,
+                      solver_iterations=6, position_iterations=2,
+                      use_cuda_solver=not fused, use_cuda_fused=fused)
+    world, _ = World.build(bodies, cfg, device=device)
+    return world, posts
+
+
+def override_state(world, slab, B, seed=0):
+    """``B`` worlds of :func:`override_world`: the crates level, their
+    centres at their rest places lowered by 0.02-0.03 (every crate
+    overlaps the slab that far) and falling at 0.3-0.5, numpy-seeded, with
+    no sideways or angular velocity: every lane carries a normal impulse
+    well clear of 0 and no friction, so that no lane sits at a kink of the
+    solve (a clamp or a max switching its branch), where two float32 VJPs
+    differ by O(1) (``chip_smoke.py`` holds the reverse passes here at
+    B=1024); and the slab's
+    per-world override planes, its local vertices moved by up to 0.01 in y
+    (the override dict ``{slab: ([8, B] x, [8, B] y)}``).  Returns ``(s,
+    override)``."""
+    rng = np.random.default_rng(seed)
+    n, dev = world.n_bodies, world.device
+    mov = ~np.asarray(world.static_bodies)
+    x, y, vx, vy, a, w = (np.zeros((n, B), np.float32) for _ in range(6))
+    for i, (cx, cy) in enumerate(_OVR_CRATES):
+        k = n - len(_OVR_CRATES) + i
+        x[k] = cx + rng.uniform(-0.01, 0.01, B)
+        y[k] = cy - 0.02 - 0.005 * i + rng.uniform(-0.003, 0.003, B)
+        vy[k] = rng.uniform(-0.5, -0.3, B)
+    assert mov.sum() == len(_OVR_CRATES)
+    tx = np.repeat(_SLAB[:, 0:1], B, 1)
+    ty = _SLAB[:, 1:2] + rng.uniform(-0.01, 0.01, (len(_SLAB), B))
+
+    def t(v):
+        return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
+
+    s = tb._SoA(px=t(x), py=t(y), vx=t(vx), vy=t(vy), angle=t(a), omega=t(w))
+    return s, {slab: (t(tx), t(ty))}
+
+
+def lander_touch_state(env, B, seed=0):
+    """``B`` per-world lander states (``BodyState``, ``[B, n, ...]``, for
+    ``World.detect_contacts``) on the world's own terrain: the spawn pose
+    lowered 13.4-13.9 onto the ground squares (top at y=-9), shifted up to
+    0.5 sideways and tilted up to 0.3 rad, numpy-seeded, so that legs and
+    hull overlap the ground in most worlds, by 0.0-0.4."""
+    from parallax_tpu_torch.dynamics.bodies import BodyState
+
+    rng = np.random.default_rng(seed)
+    ib = env._init_bodies
+    n = ib.pos.shape[0]
+    mov = ~np.asarray(env.world.static_bodies)
+    shift = np.stack([rng.uniform(-0.5, 0.5, B), rng.uniform(-13.9, -13.4, B)], -1)
+    pos = ib.pos.cpu().numpy()[None] + np.where(mov[None, :, None], shift[:, None, :], 0.0)
+    angle = ib.angle.cpu().numpy()[None] + np.where(mov[None], rng.uniform(-0.3, 0.3, (B, n)), 0.0)
+    zero = np.zeros((B, n, 2), np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(env.world.device)
+
+    return BodyState(pos=t(pos), vel=t(zero), angle=t(angle), omega=t(zero[..., 0]))
