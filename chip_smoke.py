@@ -1530,6 +1530,191 @@ def detect_contacts_phase(gpu):
     return out
 
 
+WS_CPU_B = 1024  # World.step card against CPU
+WS_POS_ATOL, WS_VEL_ATOL = 1e-4, 1e-3  # card vs CPU after one step, where the choices agree
+WS_FLIPS = 1e-3  # the share of worlds whose contact flags or chosen lanes may differ
+# the share of worlds whose contact buffers may differ beyond 1e-5 (EPA on a
+# circle stopping a step apart: the allowance tests/test_torch_narrowphase.py
+# holds JAX's EPA to)
+WS_EPA_SHARE = 0.03
+WS_STEPS = 3
+SOLVER_MODES = ("block", "jacobi", "gauss_seidel", "random_one_per_body")
+
+
+def step_choices(world, out, con, key):
+    """What a step chose in each world, ``[B, k]``: its contact flags, and
+    in the random modes each body's chosen lane (``random_one_per_body``,
+    from the step's contacts and key) or chosen ``all_contacts`` entry (the
+    keyed replay, on the step's integrated positions: it moves velocities
+    only).  Recomputed from the step's own inputs, so two devices' runs
+    can be compared choice for choice."""
+    from parallax_tpu_torch.dynamics import solver
+    from parallax_tpu_torch.engine import ref_replay
+
+    mode = world.config.solver_mode
+    parts = [con.active.long()]
+    if mode == "random_one_per_body":
+        parts.append(solver.choose_lanes(con, world.table.body_a, world.table.body_b,
+                                         world.n_bodies, key)[0])
+    elif mode == "random_one_per_body_keyed":
+        p = world.parts
+        plan = ref_replay.build_replay_plan(p.kind, p.nverts, p.body, world.n_bodies)
+        parts.append(ref_replay.keyed_choice(world.world_parts(out), plan, key)[2])
+    return torch.cat(parts, -1)
+
+
+def world_step_phase(gpu):
+    """Phase 3c: the per-world step, ``World.step``, on the card.  It is
+    plain torch, as the JAX package's is XLA code: no kernel of the repo
+    runs (the launch counts stay).
+
+    (a) The crate pile (``torch_scenarios.crate_world``, 14 bodies, C=88)
+    at B, ``sat`` + ``block``: ``World.step`` against ``step_batched`` (the
+    split step with its solve kernel) on the same states at JAX's bar (pos
+    1e-5, vel 1e-4, omega 1e-3), each one's ms a step (CUDA events, best
+    of two means of 3) and device kernels a step (torch.profiler).
+    (b) The config matrix's world (``torch_scenarios.matrix_world``) at B
+    under each (narrowphase, solver_mode) of {sat, gjk_epa} x {block,
+    jacobi, gauss_seidel, random_one_per_body}, and the keyed replay on
+    BASELINE config 3's stack (the replay refuses the matrix world, as
+    JAX's does): WS_STEPS steps with per-world keys, timed together (CUDA
+    events), finite, and device kernels a step; the card against the CPU
+    at WS_CPU_B, one step from the same states and keys: worlds whose
+    contact flags or chosen lanes differ counted (at most WS_FLIPS of
+    them), worlds whose contact buffers differ beyond 1e-5 (EPA on a circle
+    stopping a step apart) counted (at most WS_EPA_SHARE), the others
+    within WS_POS_ATOL and WS_VEL_ATOL.
+    (c) Config 3's golden rollout (300 steps, B=1, the golden key stream)
+    on the card against ``tests/golden/golden_parity.npz`` at the CPU
+    test's bars.  Returns ``{case: entry}``."""
+    from parallax_tpu_torch.engine.batched import _from_soa, step_batched
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from parallax_tpu_torch.utils import convert
+    from torch_scenarios import (batch_state, crate_overlap_state, crate_world, golden_rollout,
+                                 hold_config3, matrix_world, stack_touch_state, stack_world,
+                                 world_keys)
+
+    def timed(fn):
+        fn()
+        ms = min(cuda_ms(fn, 3) for _ in range(2))
+        return ms, device_kernels(fn)
+
+    out = {}
+    counts = (contact_solver.launches, fused_step.launches)
+    with torch.no_grad():
+        # (a) block mode against the batched step
+        world, _ = crate_world("cuda")
+        st = _from_soa(crate_overlap_state(world, B))
+        got, con = world.step(st)
+        check((contact_solver.launches, fused_step.launches) == counts,
+              "crate pile: World.step launched a kernel of the repo")
+        want = step_batched(world, st)[0]
+        torch.cuda.synchronize()
+        errs = {f: (getattr(got, f) - getattr(want, f)).abs().max().item()
+                for f in ("pos", "vel", "omega")}
+        for f, bar in (("pos", 1e-5), ("vel", 1e-4), ("omega", 1e-3)):
+            check(errs[f] <= bar, f"crate pile: World.step against step_batched {f} {errs[f]}")
+        check(bool(con.active.any()), "crate pile: no active lane")
+        entry = {"max_abs_err": errs}
+        for label, fn in (("World.step", lambda: world.step(st)),
+                          ("step_batched", lambda: step_batched(world, st))):
+            ms, (kernels, dev_ms) = timed(fn)
+            entry[label] = {"ms": ms, "device_kernels": kernels, "device_ms": dev_ms}
+            print(f"[world.step] crate pile {label} B={B} (14 bodies, C=88, sat+block): "
+                  f"{ms:.3f} ms a step, {kernels} device kernels a step ({dev_ms:.3f} ms of "
+                  f"device time), on {gpu}")
+        print(f"[world.step] crate pile World.step against step_batched: max |diff| pos "
+              f"{errs['pos']:.3e}, vel {errs['vel']:.3e}, omega {errs['omega']:.3e}")
+        out["crate_block"] = entry
+        del st, got, want, con
+
+        # (b) every mode on the card, then the card against the CPU
+        cases = [(f"matrix {nph} {mode}", lambda d, nph=nph, mode=mode: matrix_world(nph, mode, d))
+                 for nph in ("sat", "gjk_epa") for mode in SOLVER_MODES]
+        cases.append(("stack gjk_epa random_one_per_body_keyed",
+                      lambda d: stack_world(d, solver_mode="random_one_per_body_keyed")))
+        for label, make in cases:
+            counts = (contact_solver.launches, fused_step.launches)
+            world, st0 = make("cuda")
+            cpu_world, cst0 = make("cpu")
+            if label.startswith("stack"):
+                cst = stack_touch_state(cpu_world, cst0, B, seed=3)
+            else:
+                cst = batch_state(cst0, B, seed=3)
+            keys = [world_keys(B, 10 + t).cuda() for t in range(WS_STEPS)]
+            # the states enter the card as numpy arrays, as a state taken
+            # elsewhere would (utils/convert.py)
+            gst = convert.body_state_from_numpy(convert.body_state_to_numpy(cst))
+            # WS_STEPS steps with per-world keys, timed together (CUDA events)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s = gst
+            start.record()
+            for t in range(WS_STEPS):
+                s, con = world.step(s, key=keys[t])
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / WS_STEPS
+            check((contact_solver.launches, fused_step.launches) == counts,
+                  f"{label}: World.step launched a kernel of the repo")
+            check(bool(torch.isfinite(s.pos).all() & torch.isfinite(s.vel).all()
+                       & torch.isfinite(s.omega).all()), f"{label}: non-finite state")
+            kernels, dev_ms = device_kernels(lambda: world.step(gst, key=keys[0]))
+            # card against CPU, one step from the first WS_CPU_B states
+            sub = type(cst)(*(x[:WS_CPU_B] for x in cst))
+            k0 = keys[0][:WS_CPU_B]
+            ref, rcon = cpu_world.step(sub, key=k0.cpu())
+            got, gcon = world.step(type(sub)(*(x[:WS_CPU_B] for x in gst)), key=k0)
+            same = (step_choices(world, got, gcon, k0).cpu()
+                    == step_choices(cpu_world, ref, rcon, k0.cpu())).all(-1)
+            flips = int((~same).sum())
+            # worlds whose contact buffers differ beyond 1e-5 on lanes active
+            # on both sides: EPA on a circle stopping a step apart
+            both = gcon.active.cpu() & rcon.active
+            cdiff = torch.maximum((gcon.penetration.cpu() - rcon.penetration).abs().amax(-1),
+                                  (gcon.point.cpu() - rcon.point).abs().amax(-1))
+            cdiff = torch.where(both, cdiff, 0.0).amax(-1)
+            epa = int((cdiff > 1e-5).sum())
+            check(flips <= WS_FLIPS * WS_CPU_B, f"{label}: {flips} worlds chose differently "
+                  "card vs CPU")
+            check(epa <= WS_EPA_SHARE * WS_CPU_B, f"{label}: {epa} worlds' contacts differ "
+                  "card vs CPU")
+            held = same & (cdiff <= 1e-5)
+            pos_err = (got.pos.cpu() - ref.pos)[held].abs().max().item()
+            vel_err = (got.vel.cpu() - ref.vel)[held].abs().max().item()
+            check(pos_err <= WS_POS_ATOL and vel_err <= WS_VEL_ATOL,
+                  f"{label}: card vs CPU pos {pos_err}, vel {vel_err}")
+            n_active = int(con.active.sum())
+            out[label] = {"ms": ms, "device_kernels": kernels, "device_ms": dev_ms,
+                          "lanes": world.table.n_contacts, "active": n_active,
+                          "cpu_choice_flips": flips, "cpu_epa_worlds": epa,
+                          "cpu_contact_diff": cdiff.max().item(), "cpu_pos_err": pos_err,
+                          "cpu_vel_err": vel_err}
+            print(f"[world.step] {label} B={B} (C={world.table.n_contacts}): {ms:.3f} ms a step "
+                  f"(mean of {WS_STEPS}), {kernels} device kernels a step ({dev_ms:.3f} ms of "
+                  f"device time), finite; card vs CPU at B={WS_CPU_B}: {flips} worlds chose "
+                  f"differently, {epa} worlds' contacts differ beyond 1e-5 (at most "
+                  f"{cdiff.max().item():.3e}), max |diff| pos {pos_err:.3e}, vel {vel_err:.3e} "
+                  f"elsewhere, on {gpu}")
+            del s, gst, got, con, gcon
+
+        # (c) config 3's golden rollout on the card
+        world, state = stack_world("cuda")
+        golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                      "golden", "golden_parity.npz"))["config3"]
+        t0 = time.perf_counter()
+        frames = golden_rollout(world, type(state)(*(x[None] for x in state)), 300, 20, [303])
+        sec = time.perf_counter() - t0
+        try:
+            errs = tuple(float(e) for e in hold_config3(frames[:, 0], golden))
+        except AssertionError as e:
+            fail(f"golden config 3 on the card: {e}")
+        out["golden_config3"] = {"seconds": sec, "max_abs_err": errs}
+        print(f"[world.step] golden config 3 on the card (300 steps, B=1): {sec:.2f} s; max |diff| "
+              f"first 4 frames {errs[0]:.3e}, positions {errs[1]:.3e}, velocities and angles "
+              f"{errs[2]:.3e}, final heights {errs[3]:.3e}, on {gpu}")
+    return out
+
+
 def crate_card_vs_cpu():
     """Phases 4 and 6 on the user-built worlds, B=SMALL_B: ``step_batched``
     on the crate pile from ``crate_overlap_state``, split and fused on the
@@ -1917,6 +2102,9 @@ def main():
 
     lap("phase 3b (the geometry layer, World.detect_contacts) starts")
     print("[geometry] " + json.dumps(detect_contacts_phase(gpu)))
+
+    lap("phase 3c (the per-world step, World.step) starts")
+    print("[world.step] " + json.dumps(world_step_phase(gpu)))
 
     lap("phase 4 starts")
     # -- phase 4: the rollout path ---------------------------------------------------

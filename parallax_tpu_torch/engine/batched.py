@@ -683,19 +683,27 @@ def _overlap_bm(alx, ahx, aly, ahy, blx, bhx, bly, bhy):
 
 
 def check_batched_support(config, what: str = "the batch-minor path") -> None:
-    """Refuse WorldConfigs the batched path does not implement."""
+    """Refuse WorldConfigs the batched path does not implement, as the JAX
+    package's does: its collide emits 2-lane SAT manifolds where a
+    ``narrowphase="gjk_epa"`` pair table sizes one lane a pair, and its
+    solve is the block solve.  The reference modes run on the per-world
+    step, ``World.step``, on states with leading batch axes."""
     if config.narrowphase != "sat":
-        raise NotImplementedError(
+        raise ValueError(
             f"{what} supports narrowphase='sat' only, got "
-            f"{config.narrowphase!r}, as the JAX package's batched path does: "
-            "World.detect_contacts runs it; the per-world World.step is not "
-            "ported yet (ROADMAP Queue 1 item 11b)"
+            f"{config.narrowphase!r}: its collide emits 2-lane SAT "
+            "manifolds while this pair table sizes one lane per pair. Use "
+            "World.step on states with leading batch axes (the port of "
+            "jax.vmap(world.step)) for reference-mode narrowphase, or build "
+            "the world with narrowphase='sat'."
         )
     if config.solver_mode != "block":
-        raise NotImplementedError(
+        raise ValueError(
             f"{what} supports solver_mode='block' only, got "
-            f"{config.solver_mode!r}: the per-world solvers are not ported "
-            "yet (ROADMAP Queue 1 item 11b)"
+            f"{config.solver_mode!r}; jacobi/gauss_seidel/"
+            "random_one_per_body solvers run on the per-world path: "
+            "World.step on states with leading batch axes (the port of "
+            "jax.vmap(world.step))."
         )
 
 

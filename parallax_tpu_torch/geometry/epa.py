@@ -9,7 +9,8 @@ winding-order violation, no progress, a NaN).  The JAX version runs one
 pair as a fixed-length scan under ``vmap``; here one call runs a batch
 of pairs, the buffer ``[..., E, 2, 2]``, the split a scatter along the
 edge axis, and a finished lane freezes all four parts of its state, as
-the scan's masked body does.  ``torch.argmin`` takes the first minimum,
+the scan's masked body does; on CPU tensors the loop ends once every
+lane has finished (the same result).  ``torch.argmin`` takes the first minimum,
 as ``jnp.argmin`` does.
 
 Returns the reference's penetration vector: the displacement from the
@@ -22,6 +23,7 @@ from typing import Callable
 
 import torch
 
+from parallax_tpu_torch.geometry.gjk import _all_stopped
 from parallax_tpu_torch.geometry.math import _clip_c, cross2, fast_normal, safe_norm, safe_normalize
 
 EPA_DEFAULT_ITERATIONS = 48
@@ -119,6 +121,8 @@ def epa(
         new_point = torch.where(r, point, new_point)
         best_idx = torch.where(running, nbi, best_idx)
         running = running & cond(best_edge, new_point, prev_edge)
+        if _all_stopped(running):
+            break
     best_edge, _ = _closest_edge(edges)
     return _closest_point_disp(best_edge[..., 0, :], best_edge[..., 1, :], origin)
 

@@ -4,7 +4,8 @@ The JAX package's GJK runs one pair under ``vmap``; here one call runs a
 batch of pairs, its leading dimensions broadcast from the geometry.  The
 iteration is the JAX version's fixed 32 steps with a per-lane ``running``
 mask (``gjk.py:85-118``): a Python loop of ``torch.where`` updates, so a
-finished lane freezes as the reference's while-loop would stop.  The
+finished lane freezes as the reference's while-loop would stop, and on
+CPU tensors the loop ends once every lane has (the same result).  The
 seeding, the simplex update, the exit test and the validity and
 degeneracy rules (``gjk.py:120-134``) are the JAX version's.
 
@@ -36,6 +37,14 @@ class GJKResult(NamedTuple):
 
 def _dot(a, b):
     return torch.sum(a * b, dim=-1)
+
+
+def _all_stopped(running) -> bool:
+    """Whether no lane of a CPU batch still runs: the remaining steps of
+    GJK's or EPA's loop would leave every lane as it is, so the loop may
+    stop there, with the same result.  On the card this would be a host
+    sync a step, so it is not asked there."""
+    return running.device.type == "cpu" and not bool(running.any())
 
 
 def _direction(d, geom):
@@ -93,6 +102,8 @@ def gjk(
         simplex = torch.where(running[..., None, None], new_simplex, simplex)
         direction = torch.where(running[..., None], new_direction, direction)
         running = running & cond(simplex, direction)
+        if _all_stopped(running):
+            break
 
     # validity: the origin inside the triangle
     p0, p1, p2 = simplex[..., 0, :], simplex[..., 1, :], simplex[..., 2, :]

@@ -10,10 +10,12 @@ the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from parallax_tpu_torch.dynamics.bodies import BodyState
+from parallax_tpu_torch.dynamics.bodies import BodyParams, BodyState
 from parallax_tpu_torch.engine.batched import ContactsBM, _SoA
 from parallax_tpu_torch.utils.device import resolve as resolve_device
 
@@ -93,6 +95,50 @@ def robocup_state_to_numpy(state) -> dict:
            for f, x in zip(BodyState._fields, state.bodies)}
     out["t"] = state.t.detach().cpu().numpy()
     out["key"] = state.key.detach().cpu().numpy().astype(np.uint32)
+    return out
+
+
+def body_state_from_numpy(d, device="cuda") -> BodyState:
+    """``{pos, vel, angle, omega}`` arrays (a dict, or anything with those
+    attributes, such as the JAX package's ``BodyState`` read with
+    ``np.asarray``) with any leading axes -> ``BodyState`` float32."""
+    device = resolve_device(device)
+    get = d.__getitem__ if isinstance(d, dict) else lambda f: getattr(d, f)
+    return BodyState(*(_f32(get(f), device) for f in BodyState._fields))
+
+
+def body_state_to_numpy(state: BodyState) -> dict:
+    """``BodyState`` -> ``{pos, vel, angle, omega}`` numpy arrays."""
+    return {f: x.detach().cpu().numpy() for f, x in zip(BodyState._fields, state)}
+
+
+# the differentiable leaves of a world: (field of World, its fields)
+WORLD_LEAVES = (
+    ("params", BodyParams._fields),
+    ("joints", ("anchor_a", "anchor_b", "kp", "kd", "v0")),
+    ("parts", ("verts", "radius")),
+)
+
+
+def world_leaves_from_numpy(world, d: dict):
+    """The port's ``world`` with its differentiable leaves replaced by the
+    arrays of ``d``, keyed ``"params.mass"``, ``"params.inertia"``,
+    ``"params.elasticity"``, ``"params.friction"``, ``"joints.anchor_a"``,
+    ``"joints.anchor_b"``, ``"joints.kp"``, ``"joints.kd"``,
+    ``"joints.v0"``, ``"parts.verts"`` and ``"parts.radius"`` (the leaves
+    of the JAX package's ``World``; a missing key keeps the world's own
+    leaf).  The topology stays; the static tables of the batched step are
+    rebuilt from the new leaves, on the world's device."""
+    from parallax_tpu_torch.engine.batched import build_static_tables
+
+    new = {}
+    for field, leaves in WORLD_LEAVES:
+        old = getattr(world, field)
+        repl = {f: _f32(d[f"{field}.{f}"], world.device) for f in leaves if f"{field}.{f}" in d}
+        new[field] = (old._replace(**repl) if hasattr(old, "_replace")
+                      else dataclasses.replace(old, **repl))
+    out = dataclasses.replace(world, cache={}, **new)
+    build_static_tables(out)
     return out
 
 

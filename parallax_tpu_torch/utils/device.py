@@ -7,6 +7,9 @@ never falls back to the CPU.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -19,3 +22,16 @@ def resolve(device) -> torch.device:
             "finds no CUDA device; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _static(values: tuple, dtype: str, device: torch.device) -> torch.Tensor:
+    return torch.tensor(np.asarray(values, dtype=dtype), device=device)
+
+
+def static_tensor(values, device) -> torch.Tensor:
+    """A static index or mask table (a numpy array, a sequence) as a tensor
+    on ``device``, copied there once per distinct table and device: the
+    per-world step's loops read the same few tables every step."""
+    a = np.asarray(values)
+    return _static(tuple(a.reshape(-1).tolist()), a.dtype.str, torch.device(device)).reshape(a.shape)

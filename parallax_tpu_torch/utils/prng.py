@@ -6,7 +6,9 @@ reproduces jax's bits exactly: same key in, same terrain out.  This
 follows jax 0.9's defaults, ``jax_threefry_partitionable=True`` and the
 ``threefry2x32`` implementation (``jax/_src/prng.py``:
 ``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``,
-``_threefry2x32_lowering``; ``jax/_src/random.py``: ``_uniform``).
+``_threefry2x32_lowering``; ``jax/_src/random.py``: ``_uniform``, and
+the draws the per-world random solvers consume: ``bernoulli``,
+``gumbel``, ``categorical`` and ``choice``).
 
 Keys are int64 tensors ``[..., 2]`` holding uint32 values: torch's uint32
 type lacks shifts on every device, so the arithmetic runs in int64 and is
@@ -119,3 +121,51 @@ def normal(keys, shape: tuple = ()):
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(keys, shape, lo, 1.0)
     return np.float32(np.sqrt(2)).item() * _erf_inv(u)
+
+
+# jax.random's draws on top of ``uniform``, as jax 0.9 computes them in its
+# default "low" mode (``jax_high_dynamic_range_gumbel`` false; bernoulli's
+# own default mode is "low" as well)
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def bernoulli(keys, p: float = 0.5, shape: tuple = ()):
+    """``jax.random.bernoulli(key, p)``: ``uniform(key) < p``, bool."""
+    return uniform(keys, shape) < float(np.float32(p))
+
+
+def gumbel(keys, shape: tuple = ()):
+    """``jax.random.gumbel`` (float32): ``-log(-log(u))`` of a uniform draw
+    in ``[tiny, 1)``.  ``log`` is not correctly rounded on either side, so
+    a draw may be an ulp or two from jax's."""
+    return -torch.log(-torch.log(uniform(keys, shape, _TINY, 1.0)))
+
+
+def categorical(keys, logits):
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    argmax of ``gumbel + logits`` (the first of tied maxima).  ``keys`` is
+    ``[..., 2]`` and ``logits`` ``[..., K]``, one key a distribution."""
+    g = gumbel(keys, (logits.shape[-1],))
+    return torch.argmax(g + logits, dim=-1)
+
+
+def cumsum32(x):
+    """A float32 running sum over the last axis, one add after another, as
+    XLA's ``cumsum`` on the CPU adds them (``torch.cumsum`` may sum in
+    another order or accumulate in float64)."""
+    cols = [x[..., 0]]
+    for k in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., k])
+    return torch.stack(cols, -1)
+
+
+def choice(keys, p):
+    """``jax.random.choice(key, n, p=p)`` with replacement: ``p`` is
+    ``[..., n]``, one key a row.  ``p_cuml = cumsum(p)``, ``r = p_cuml[-1]
+    * (1 - uniform(key))``, then the first index whose ``p_cuml`` reaches
+    ``r`` (``searchsorted``, left side).  A row of NaNs (``p`` of an empty
+    row, 0/0) gives 0, as jax's binary search does."""
+    p_cuml = cumsum32(p)
+    r = p_cuml[..., -1] * (1.0 - uniform(keys))
+    ind = torch.searchsorted(p_cuml.contiguous(), r[..., None].contiguous(), side="left")[..., 0]
+    return torch.where(torch.isnan(r), 0, torch.clamp(ind, max=p.shape[-1] - 1))

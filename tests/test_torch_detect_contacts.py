@@ -10,7 +10,7 @@ penetrations and points within 1e-5.  The two narrow phases agree with
 each other on which pairs touch, with depths within 0.01 (the rule of
 ``tests/test_reference_modes.py``), and the per-world SAT collide equals
 the batched step's own ``collide_batched``.  The batched step refuses
-``narrowphase="gjk_epa"``, as JAX's does.
+``narrowphase="gjk_epa"`` with ``ValueError``, as JAX's does.
 """
 
 import jax
@@ -123,8 +123,8 @@ def test_sat_collide_equals_collide_batched():
     function, as in JAX, where the batched collide writes 0, and a
     separated polygon pair's clip points differ between the two JAX
     collides as well).  The
-    batched step refuses a ``gjk_epa`` world, naming World.detect_contacts
-    and ROADMAP Queue 1 item 11b."""
+    batched step refuses a ``gjk_epa`` world with JAX's ``ValueError``,
+    naming ``World.step``, the per-world path that runs it."""
     env = LunarLander(LanderConfig(), device="cpu")
     cases = [(env.world, lander_touch_state(env, B))]
     make, cfg, *_ = KIND_WORLDS["mixed"]
@@ -143,5 +143,5 @@ def test_sat_collide_equals_collide_batched():
     ref = LunarLander(LanderConfig(narrowphase="gjk_epa"), device="cpu")
     st = lander_touch_state(ref, 2)
     assert ref.world.detect_contacts(st).active.shape == (2, 24)
-    with pytest.raises(NotImplementedError, match="detect_contacts.*item 11b"):
+    with pytest.raises(ValueError, match="narrowphase='sat'.*World.step.*vmap"):
         tb.physics_core(ref.world, tb._to_soa(BodyState(*st)))

@@ -81,7 +81,7 @@ def test_unported_kernels_and_modes_raise():
     a box (bb) among them; what raises is a kind the fused kernels lack,
     as the JAX package's do (a circle on a polygon, cp: ValueError naming
     the split step, under autograd and without), and the per-world solver
-    modes (ROADMAP Queue 1 item 11)."""
+    modes, with JAX's ``ValueError`` naming ``World.step``."""
     from torch_scenarios import pair_world
 
     from parallax_tpu_torch.engine.batched import physics_core
@@ -105,7 +105,7 @@ def test_unported_kernels_and_modes_raise():
         with pytest.raises(ValueError, match="split step"):
             fused_step.physics_core_fused(world, s._replace(px=px))
     world_gs, _ = pair_world("bb", solver_mode="gauss_seidel")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match="block.*World.step.*vmap"):
         physics_core(world_gs, s)
     assert WorldConfig().solver_mode == "block"
 

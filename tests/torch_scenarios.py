@@ -725,3 +725,145 @@ def lander_touch_state(env, B, seed=0):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(env.world.device)
 
     return BodyState(pos=t(pos), vel=t(zero), angle=t(angle), omega=t(zero[..., 0]))
+
+
+def matrix_bodies(BodyDef, box, circle, polygon):
+    """The config matrix's world (``tests/test_config_matrix.py:_world``),
+    in either package's types: a tilted square, a triangle, two circles
+    and a static ground box; its pair groups are cc, cb, cp, bp and pp."""
+    square = polygon([(-0.5, -0.5), (0.5, -0.5), (0.5, 0.5), (-0.5, 0.5)])
+    tri = polygon([(-0.4, -0.3), (0.5, -0.2), (0.0, 0.5)])
+    return [
+        BodyDef(shapes=[square], mass=1.0, inertia=0.2, position=(0.0, 0.4),
+                angle=0.15, elasticity=0.3, friction=0.5),
+        BodyDef(shapes=[tri], mass=1.5, inertia=0.3, position=(0.3, 1.1),
+                angle=-0.2, elasticity=0.2, friction=0.4),
+        BodyDef(shapes=[circle(0.3)], mass=0.8, inertia=0.05,
+                position=(-0.45, 0.9), elasticity=0.6, friction=0.3),
+        BodyDef(shapes=[circle(0.25)], mass=0.5, inertia=0.04,
+                position=(-0.35, 1.4), elasticity=0.9, friction=0.2),
+        BodyDef(shapes=[box((-6.0, -2.0), (6.0, 0.0))], mass=np.inf,
+                inertia=np.inf, elasticity=0.1, friction=0.6),
+    ]
+
+
+def matrix_config(narrowphase, solver_mode):
+    """The config matrix's ``WorldConfig`` fields."""
+    return dict(dt=0.01, gravity=(0.0, -9.8), integrator="symplectic",
+                narrowphase=narrowphase, solver_mode=solver_mode, solver_iterations=4,
+                position_iterations=2 if solver_mode == "block" else 0)
+
+
+def matrix_world(narrowphase="sat", solver_mode="block", device="cpu"):
+    """The config matrix's world as a port world: ``(world, state)``."""
+    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
+    from parallax_tpu_torch.geometry.shapes import box, circle, polygon
+
+    return World.build(matrix_bodies(BodyDef, box, circle, polygon),
+                       WorldConfig(**matrix_config(narrowphase, solver_mode)), device=device)
+
+
+def batch_state(state, B, seed=0, pos=0.05, vel=0.2):
+    """``B`` copies of a world's ``BodyState`` with numpy-seeded normal
+    noise on positions (``pos``) and velocities (``vel``), as the config
+    matrix perturbs its batch: a ``BodyState`` ``[B, n, ...]`` on the
+    state's device."""
+    rng = np.random.default_rng(seed)
+    dev = state.pos.device
+
+    def noise(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    b = type(state)(*(x[None].expand((B,) + x.shape).clone() for x in state))
+    return b._replace(pos=b.pos + noise(b.pos.shape, pos), vel=b.vel + noise(b.vel.shape, vel))
+
+
+def world_keys(B, seed, device="cpu"):
+    """``B`` threefry keys ``[B, 2]`` (uint32 values in int64) from a numpy
+    seed."""
+    k = np.random.default_rng(seed).integers(0, 2**32, (B, 2), dtype=np.uint32)
+    return torch.from_numpy(k.astype(np.int64)).to(device)
+
+
+# BASELINE configs 1-3 (tests/test_golden_parity.py:40-137): the ground
+# polygon, the reference-mode WorldConfig fields and the keyed rollout
+GOLDEN_GROUND = [(-20.0, -2.0), (20.0, -2.0), (20.0, 0.0), (-20.0, 0.0)]
+
+
+def golden_ground(BodyDef, polygon):
+    return BodyDef(shapes=[polygon(GOLDEN_GROUND)], mass=np.inf, inertia=np.inf,
+                   elasticity=0.5, friction=0.3)
+
+
+def reference_config(ContactSolverConfig, **kw):
+    """The golden configs' reference pipeline: GJK/EPA, the reference
+    impulse formulas, the per-body random choice, no broadphase."""
+    base = dict(dt=0.01, gravity=(0.0, -0.2), integrator="reference", narrowphase="gjk_epa",
+                solver_mode="random_one_per_body", contact=ContactSolverConfig.reference(),
+                broadphase=False)
+    base.update(kw)
+    return base
+
+
+def stack_bodies(BodyDef, polygon):
+    """BASELINE config 3's stack: three unit boxes on the ground."""
+    sq = polygon([(-0.5, -0.5), (0.5, -0.5), (0.5, 0.5), (-0.5, 0.5)])
+    return [BodyDef(shapes=[sq], mass=1.0, inertia=0.2, position=(0.02 * i, 0.55 + 1.05 * i),
+                    elasticity=0.1, friction=0.6) for i in range(3)] + [golden_ground(BodyDef, polygon)]
+
+
+def stack_world(device="cpu", **config):
+    """Config 3's stack as a port world in the reference pipeline
+    (``config`` updates its fields): ``(world, state)``."""
+    from parallax_tpu_torch.dynamics.impulses import ContactSolverConfig
+    from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
+    from parallax_tpu_torch.geometry.shapes import polygon
+
+    return World.build(stack_bodies(BodyDef, polygon),
+                       WorldConfig(**reference_config(ContactSolverConfig, **config)), device=device)
+
+
+def stack_touch_state(world, state, B, seed=0):
+    """``B`` copies of config 3's start pose with the boxes sunk 0.07 (into
+    each other and the ground: every pair of neighbours touches) and
+    numpy-seeded velocities on the boxes (0.1 a component)."""
+    st = batch_state(state, B, seed=seed, pos=0.0, vel=0.1)
+    mov = (~torch.tensor(world.static_bodies, device=state.pos.device))[:, None]
+    sink = torch.tensor([0.0, 0.07], device=state.pos.device)
+    return st._replace(pos=st.pos - mov * sink, vel=st.vel * mov)
+
+
+def golden_rollout(world, state, n_steps, record_every, seeds):
+    """``[T, B, n, 6]`` frames (pos, vel, angle, omega) of the golden
+    configs' keyed rollout of ``B = len(seeds)`` worlds: world b steps with
+    ``split(PRNGKey(seeds[b]), n_steps)``, as ``test_golden_parity.py``'s
+    ``_rollout`` does."""
+    from parallax_tpu_torch.utils import prng
+
+    roots = torch.tensor([[0, s] for s in seeds], dtype=torch.int64, device=state.pos.device)
+    keys = prng.split(roots, n_steps).transpose(0, 1)  # [n_steps, B, 2]
+    frames = []
+    with torch.no_grad():
+        for t in range(n_steps):
+            state, _ = world.step(state, key=keys[t])
+            if (t + 1) % record_every == 0:
+                frames.append(torch.cat([state.pos, state.vel, state.angle[..., None],
+                                         state.omega[..., None]], -1))
+    return torch.stack(frames).cpu().numpy()
+
+
+def hold_config3(got, want):
+    """Config 3's frames ``[15, 4, 6]`` against the golden's at the bars of
+    ``tests/test_numpy_oracle.py:347-358``: the first 4 frames within
+    1e-7, positions within 5e-3, velocities and angles within 1e-1, the
+    final heights within 1e-3; the top box stays up.  Returns the four
+    largest differences."""
+    errs = (np.abs(got[:4, :3] - want[:4, :3]).max(), np.abs(got[:, :3, :2] - want[:, :3, :2]).max(),
+            np.abs(got[:, :3, 2:] - want[:, :3, 2:]).max(),
+            np.abs(got[-1, :3, 1] - want[-1, :3, 1]).max())
+    assert np.isfinite(got).all() and got[-1, 2, 1] > 1.8, "config 3: the stack fell"
+    for e, bar, what in zip(errs, (1e-7, 5e-3, 1e-1, 1e-3),
+                            ("first 4 frames", "positions", "velocities and angles",
+                             "final heights")):
+        assert e <= bar, f"config 3 {what}: {e} > {bar}"
+    return errs
