@@ -1715,6 +1715,290 @@ def world_step_phase(gpu):
     return out
 
 
+EA_STEPS = 20  # (a) chained per-world steps at B
+EA_CPU_B = 1024  # (c): the card against the CPU
+# (d): the CPU's evaluate of 1,024 worlds takes some 110 s on an 8-core
+# host; 256 worlds keep the phase near 150 s
+EA_EVAL_CPU_B = 256
+EA_EVAL = dict(eval_period=3.0, num_nfes=30, wfe_scale=10)  # the example's evaluate
+EA_EVAL_RTOL = 1e-3  # (d): rewards and the throttle gradient, card vs CPU
+
+
+def busy_ms(fn):
+    """``(device kernels, device ms)`` of one call of ``fn`` after a warm-up
+    call (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    return device_kernels(fn)
+
+
+def chained_ms(step, st, acts):
+    """Host-clock ms a step of ``len(acts)`` chained steps, one sync at the
+    end; returns ``(ms, final state)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in acts:
+        st, _ = step(st, a)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(acts), st
+
+
+def env_api_phase(gpu):
+    """Phase 3d: the per-world env API (``envs/base.py``) on the card.
+    ``Environment.step`` runs ``World.step`` per world, plain torch as the
+    JAX package's is XLA code: no kernel of the repo runs on this path.
+
+    (a) The lander and RoboCup at B, SAT and block, from their scenes
+    (``torch_scenarios.lander_scene``/``robocup_scene``: contacts, landings,
+    crashes and goals): ``env.step`` and the plane-space ``step_batch``
+    (which launches the solve kernel), EA_STEPS chained steps each, ms a
+    step (host clock, one sync), device kernels a step and the device's
+    busy share of a step (torch.profiler's device time over the host ms).
+    (b) One step from the same states, ``env.step`` against ``step_batch``:
+    positions 1e-5, velocities 1e-4, done flags identical.
+    (c) The card against the CPU at EA_CPU_B, EA_STEPS per-world steps:
+    at least CPU_DONE_SHARE of the worlds with equal done sequences, and
+    on those obs and reward within CPU_ATOL.
+    (d) ``evaluate`` with ``LanderJudge`` and ``make_world_forward`` at B
+    worlds, each its own terrain and throttle (a quarter drifting out of
+    bounds), 30 NFE x 10 WFE: its seconds, finite, the drifting worlds'
+    crash in their rewards; the first EA_EVAL_CPU_B worlds' rewards within
+    EA_EVAL_RTOL relative of the CPU's; the example's gradient of the
+    return with respect to the throttle at B=1 finite and within
+    EA_EVAL_RTOL relative of the CPU's.
+    (e) Golden configs 4, 4k and 5 on the card at the CPU test's bars
+    (``torch_scenarios.hold_golden_env``).
+    (f) The utils: ``dbc`` in fleet mode poisons one world of B, which
+    alone is truncated and reset while the fleet steps on; a checkpoint of
+    a card fleet with its policy and Adam state continues 3 train steps
+    bitwise as the unbroken run; ``Renderer.render_env`` of a card state
+    draws.  Returns ``{case: entry}``."""
+    from parallax_tpu_torch.envs.base import ConstantControl, evaluate
+    from parallax_tpu_torch.envs.lunar_lander import LanderJudge, LunarLander, make_world_forward
+    from parallax_tpu_torch.envs.robocup import RoboCup
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from parallax_tpu_torch.parallel.rollout import adam, make_train_step
+    from parallax_tpu_torch.utils import checkpoint, dbc
+    from parallax_tpu_torch.utils.pytree import tree_leaves, tree_map
+    from parallax_tpu_torch.viz import Renderer
+    from torch_scenarios import (GOLDEN_ENV_CASES, env_actions, golden_env_case, hold_golden_env,
+                                 lander_scene, robocup_scene)
+
+    out = {}
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        for name, cls, scene in (("lander", LunarLander, lander_scene),
+                                 ("robocup", RoboCup, robocup_scene)):
+            env, env_cpu = cls(device="cuda"), cls(device="cpu")
+            st = scene(env, B, seed=3)
+            acts = env_actions(env, EA_STEPS, B, seed=4)
+            entry = {}
+            # (a) per-world against plane-space steps, each timed and profiled
+            for label, step in (("env.step", env.step), ("step_batch", env.step_batch)):
+                counts = contact_solver.launches, fused_step.launches
+                step(st, acts[0])
+                ms, _ = chained_ms(step, st, acts)
+                launched = contact_solver.launches - counts[0], fused_step.launches - counts[1]
+                kernels, dev_ms = busy_ms(lambda: step(st, acts[0]))
+                if label == "env.step":
+                    check(launched == (0, 0), f"{name}: env.step launched a kernel of the repo")
+                else:
+                    check(launched[0] > 0, f"{name}: step_batch launched no solve kernel")
+                entry[label] = {"ms": ms, "device_kernels": kernels, "device_ms": dev_ms,
+                                "busy_share": dev_ms / ms}
+                print(f"[env-api] {name} {label} B={B}: {ms:.3f} ms a step (host clock, "
+                      f"{EA_STEPS} chained, one sync), {kernels} device kernels a step "
+                      f"({dev_ms:.3f} ms of device time, busy {dev_ms / ms:.3f}), on {gpu}")
+            # (b) one step, per-world against plane
+            got, ts = env.step(st, acts[0])
+            want, wts = env.step_batch(st, acts[0])
+            errs = {f: (getattr(got.bodies, f) - getattr(want.bodies, f)).abs().max().item()
+                    for f in ("pos", "vel")}
+            check(errs["pos"] <= 1e-5 and errs["vel"] <= 1e-4,
+                  f"{name}: env.step against step_batch {errs}")
+            check(torch.equal(ts.done, wts.done), f"{name}: done flags differ from step_batch")
+            check(bool(ts.done.any()) and not bool(ts.done.all()), f"{name}: scene does not mix")
+            entry["vs_step_batch"] = errs
+            print(f"[env-api] {name} env.step against step_batch, one step at B={B}: max |diff| "
+                  f"pos {errs['pos']:.3e}, vel {errs['vel']:.3e}, done flags equal "
+                  f"({int(ts.done.sum())} done)")
+            # (c) card against CPU
+            cst = scene(env_cpu, EA_CPU_B, seed=5)
+            gst = tree_map(lambda x: x.to(dev), cst)
+            ca = env_actions(env_cpu, EA_STEPS, EA_CPU_B, seed=6)
+            dones, obs, rew = [], [], []
+            for a in ca:
+                cst, cts = env_cpu.step(cst, a)
+                gst, gts = env.step(gst, a.to(dev))
+                dones.append((cts.done, gts.done.cpu()))
+                obs.append((cts.obs, gts.obs.cpu()))
+                rew.append((cts.reward, gts.reward.cpu()))
+            same = torch.ones(EA_CPU_B, dtype=torch.bool)
+            for c, g in dones:
+                same &= c == g
+            share = same.float().mean().item()
+            check(share >= CPU_DONE_SHARE, f"{name}: card vs CPU equal done sequences {share}")
+            oerr = max((c - g)[same].abs().max().item() for c, g in obs)
+            rerr = max((c - g)[same].abs().max().item() for c, g in rew)
+            check(oerr <= CPU_ATOL and rerr <= CPU_ATOL,
+                  f"{name}: card vs CPU obs {oerr}, reward {rerr}")
+            entry["vs_cpu"] = {"done_share": share, "obs_err": oerr, "reward_err": rerr}
+            print(f"[env-api] {name} card vs CPU, {EA_STEPS} per-world steps at B={EA_CPU_B}: "
+                  f"{share:.4f} of the worlds with equal done sequences, on them max |diff| "
+                  f"obs {oerr:.3e}, reward {rerr:.3e}")
+            out[name] = entry
+            del st, got, want, gst
+
+        # (d) evaluate at B, each world its own terrain and throttle
+        env, env_cpu = LunarLander(device="cuda"), LunarLander(device="cpu")
+        st = env.reset_fn(keys_for(B, 40, dev))
+        drift = torch.arange(B, device=dev) % 4 == 0
+        pos, vel = st.bodies.pos.clone(), st.bodies.vel.clone()
+        pos[drift, :3, 0] += 13.0
+        vel[drift, :3, 0] = 4.0
+        bodies = st.bodies._replace(pos=pos, vel=vel)
+        thr = torch.from_numpy(np.random.default_rng(41).uniform(0, 1, B).astype(np.float32))
+        signal = torch.stack([thr, torch.zeros_like(thr)], -1)
+
+        def run(env, bodies, terrain, signal):
+            return evaluate(make_world_forward(env, terrain), bodies, ConstantControl(signal),
+                            LanderJudge(env, terrain), **EA_EVAL)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, reward = run(env, bodies, st.terrain, signal.to(dev))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        check(bool(torch.isfinite(reward).all() & torch.isfinite(final.pos).all()),
+              "evaluate: non-finite")
+        check(bool((reward[drift] < -50.0).all()), "evaluate: a drifting world did not crash")
+        sub = slice(0, EA_EVAL_CPU_B)
+        t0 = time.perf_counter()
+        _, creward = run(env_cpu, type(bodies)(*(x[sub].cpu() for x in bodies)),
+                         st.terrain[sub].cpu(), signal[sub])
+        cpu_sec = time.perf_counter() - t0
+        rel = ((reward[sub].cpu() - creward).abs() / creward.abs()).max().item()
+        check(rel <= EA_EVAL_RTOL, f"evaluate: card vs CPU rewards rel diff {rel}")
+    # the example's gradient at B=1, card and CPU
+    grads = {}
+    for d, e in (("cuda", env), ("cpu", env_cpu)):
+        s1 = e.reset(torch.tensor([0, 1], device=d))
+        u = torch.tensor(0.25, device=d, requires_grad=True)
+        _, r = run(e, s1.bodies, s1.terrain, torch.stack([u, torch.zeros_like(u)]))
+        r.backward()
+        grads[d] = u.grad.item()
+    grel = abs(grads["cuda"] - grads["cpu"]) / abs(grads["cpu"])
+    check(np.isfinite(grads["cuda"]) and grel <= EA_EVAL_RTOL,
+          f"evaluate gradient: card {grads['cuda']} vs CPU {grads['cpu']}")
+    out["evaluate"] = {"B": B, "seconds": sec, "cpu_B": EA_EVAL_CPU_B, "cpu_seconds": cpu_sec,
+                       "cpu_reward_rel": rel, "grad_cuda": grads["cuda"], "grad_cpu": grads["cpu"],
+                       "grad_rel": grel}
+    print(f"[env-api] evaluate (LanderJudge, 30 NFE x 10 WFE) at B={B}: {sec:.2f} s, finite, "
+          f"the drifting worlds crashed; card vs CPU at B={EA_EVAL_CPU_B} ({cpu_sec:.1f} s on the "
+          f"CPU): rewards max rel diff {rel:.3e}; d(return)/d(throttle) at B=1: card "
+          f"{grads['cuda']:.6f}, CPU {grads['cpu']:.6f} (rel {grel:.2e}), on {gpu}")
+
+    # (e) golden configs 4, 4k and 5 on the card
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                                  "golden_parity.npz"))
+    for name in GOLDEN_ENV_CASES:
+        t0 = time.perf_counter()
+        got = golden_env_case(name, "cuda")
+        sec = time.perf_counter() - t0
+        try:
+            errs = hold_golden_env(name, got, golden)
+        except AssertionError as e:
+            fail(f"golden {name} on the card: {e}")
+        out[f"golden_{name}"] = {"seconds": sec, "frames_err": errs[0], "reward_err": errs[1]}
+        print(f"[env-api] golden {name} on the card: {sec:.2f} s; max |diff| frames "
+              f"{errs[0]:.3e}, rewards {errs[1]:.3e}")
+
+    # (f) the utils on the card: dbc in fleet mode
+    env = LunarLander(device="cuda")
+    with torch.no_grad():
+        st = env.reset_fn(keys_for(B, 50, dev))
+        a = env_actions(env, 4, B, seed=51)
+        bad = B // 2 + 7
+        ok = torch.arange(B, device=dev) != bad
+        dbc.set_debug_checks(True)
+        dbc.set_raise_on_violation(False)
+        try:
+            pos = dbc.check(ok, "chip_smoke: world in bounds", st.bodies.pos)
+            counts = dbc.violation_counts()
+        finally:
+            dbc.set_raise_on_violation(True)
+            dbc.set_debug_checks(False)
+            dbc.clear_violations()
+        check(counts.get("chip_smoke: world in bounds") == 1, f"dbc: counts {counts}")
+        clean, _ = env.step(st, a[0])
+        poisoned, ts = env.step(st._replace(bodies=st.bodies._replace(pos=pos)), a[0])
+        check(torch.equal(ts.truncated, ~ok), "dbc: the truncated worlds are not the poisoned one")
+        for g, c in zip(tree_leaves(poisoned), tree_leaves(clean)):
+            check(torch.equal(g[ok], c[ok]), "dbc: a healthy world changed")
+        s = poisoned
+        for t in range(1, 4):
+            s, _ = env.step(s, a[t])
+        check(bool(torch.isfinite(s.bodies.pos).all()), "dbc: the fleet did not run on")
+    out["dbc_fleet"] = {"B": B, "poisoned_world": bad, "truncated": int(ts.truncated.sum())}
+    print(f"[env-api] dbc fleet mode at B={B}: world {bad} poisoned, truncated and reset alone, "
+          "the other worlds' bits equal the clean step's, the fleet stepped on finite")
+
+    # the utils on the card: a checkpoint resumes bitwise
+    def policy(p, obs):
+        return torch.tanh(obs @ p["w"] + p["b"])
+
+    rng = np.random.default_rng(52)
+    params = {"w": torch.tensor(rng.standard_normal((9, 2)) * 0.1, dtype=torch.float32,
+                                device=dev, requires_grad=True),
+              "b": torch.zeros(2, device=dev, requires_grad=True)}
+    opt = adam(params)
+    step = make_train_step(env, policy, opt, 8)
+    states = env.reset_fn_batch(keys_for(EA_CPU_B, 53, dev))
+    # the backward's gathers accumulate with atomics on the card unless
+    # torch runs its deterministic algorithms; both runs run them
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    params, states, _ = step(params, states)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "env_api_ckpt.pt")
+    checkpoint.save(path, {"params": params, "opt": opt.state_dict(), "states": states})
+    target = {"params": {k: v.detach().clone() for k, v in params.items()},
+              "opt": opt.state_dict(), "states": states}
+    runs = []
+    for resumed in (False, True):
+        if resumed:
+            r = checkpoint.restore(path, target)
+            params = {k: v.requires_grad_(True) for k, v in r["params"].items()}
+            opt = adam(params)
+            opt.load_state_dict(r["opt"])
+            step, states = make_train_step(env, policy, opt, 8), r["states"]
+        p, s = params, states
+        rets = []
+        for _ in range(3):
+            p, s, m = step(p, s)
+            rets.append(m["mean_return"].item())
+        runs.append((rets, [x.detach().clone() for x in p.values()], s))
+    torch.use_deterministic_algorithms(False)
+    os.remove(path)
+    (ra, pa, sa), (rb, pb, sb) = runs
+    check(ra == rb and all(torch.equal(x, y) for x, y in zip(pa, pb))
+          and all(torch.equal(x, y) for x, y in zip(tree_leaves(sa), tree_leaves(sb))),
+          f"checkpoint: the resumed run differs ({ra} vs {rb})")
+    check(all(x.is_cuda for x in tree_leaves(sb)), "checkpoint: restored off the card")
+    out["checkpoint"] = {"B": EA_CPU_B, "returns": ra}
+    print(f"[env-api] checkpoint of a card fleet (B={EA_CPU_B}, policy, Adam state) resumed: "
+          f"3 train steps bitwise equal to the unbroken run (returns {ra})")
+
+    # the utils on the card: the renderer draws a card state
+    one = env.reset(torch.tensor([0, 0], device=dev))
+    frame = Renderer(160, 120).render_env(env, one)
+    check(frame.shape == (120, 160, 3) and int((frame > 0).any(-1).sum()) > 0,
+          "renderer: nothing drawn")
+    out["renderer"] = {"pixels_drawn": int((frame > 0).any(-1).sum())}
+    print(f"[env-api] Renderer.render_env of a card state: {out['renderer']['pixels_drawn']} "
+          "pixels drawn")
+    return out
+
+
 def crate_card_vs_cpu():
     """Phases 4 and 6 on the user-built worlds, B=SMALL_B: ``step_batched``
     on the crate pile from ``crate_overlap_state``, split and fused on the
@@ -2105,6 +2389,9 @@ def main():
 
     lap("phase 3c (the per-world step, World.step) starts")
     print("[world.step] " + json.dumps(world_step_phase(gpu)))
+
+    lap("phase 3d (the per-world env API) starts")
+    print("[env-api] " + json.dumps(env_api_phase(gpu)))
 
     lap("phase 4 starts")
     # -- phase 4: the rollout path ---------------------------------------------------

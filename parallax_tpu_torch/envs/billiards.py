@@ -17,9 +17,10 @@ runs the whole step as the fused kernel (``ops/fused_step.py``, the twin of
 runs any ``n_object`` (billiards48, 52 parts and C=1320 lanes, keeps the
 forward's lane fields in scratch, ``contact_solver.fields_plan``).
 
-Not ported: ``BilliardsConfig.rolled`` (``engine/rolled.py``, which the
-port does not take over) and the per-world ``reset_fn``/``step_fn``
-(ROADMAP Queue 1 item 11).
+The per-world ``reset_fn``/``step_fn`` (states with any leading batch
+axes, ``envs/base.py``) step through ``World.step``.  Not ported:
+``BilliardsConfig.rolled`` (``engine/rolled.py``, which the port does not
+take over).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 from parallax_tpu_torch.dynamics.bodies import BodyState
 from parallax_tpu_torch.engine.batched import _clip_c, _SoA
 from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
-from parallax_tpu_torch.envs.base import Environment
+from parallax_tpu_torch.envs.base import BatchedEnvironmentMixin, Environment, TimeStep
 from parallax_tpu_torch.envs.plane_env import PlaneEnvMixin
 from parallax_tpu_torch.geometry.shapes import box, circle
 from parallax_tpu_torch.utils import prng
@@ -123,7 +124,7 @@ def _rack_positions(n_object: int) -> np.ndarray:
     return np.asarray(pos, np.float32)
 
 
-class Billiards(PlaneEnvMixin, Environment):
+class Billiards(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
     """Batched billiards on ``device`` (the GPU unless the caller asks for
     the CPU); see the module docstring."""
 
@@ -183,6 +184,8 @@ class Billiards(PlaneEnvMixin, Environment):
         self._park_x = torch.from_numpy(
             np.linspace(-n, n, n, dtype=np.float32)[:, None]).to(self.device)
         self._park_y = torch.full((n, 1), PARK_Y, dtype=torch.float32, device=self.device)
+        self._park = torch.cat([self._park_x, self._park_y], dim=-1)  # [n, 2]
+        self._corners = torch.from_numpy(_CORNERS).to(self.device)
         self._corner_x = torch.from_numpy(_CORNERS[:, 0][None, :, None].copy()).to(self.device)
         self._corner_y = torch.from_numpy(_CORNERS[:, 1][None, :, None].copy()).to(self.device)
 
@@ -199,32 +202,85 @@ class Billiards(PlaneEnvMixin, Environment):
     # -- states -----------------------------------------------------------
 
     def _jitter(self, keys):
-        """The reset jitter of each ball, ``[B, n, 2]``, from ``keys``."""
+        """The reset jitter of each ball, ``[..., n, 2]``, from ``keys``."""
         return prng.uniform(keys, (self.n_balls, 2), -0.002, 0.002)
 
-    def reset_fn_batch(self, keys) -> BilliardsState:
-        """``keys`` ``[B, 2]`` -> fresh racks, each ball jittered; the key
-        tree of ``reset_fn``: ``split(key) -> (jitter, state)``."""
-        B, n = keys.shape[0], self.n_balls
-        split = prng.split(keys)  # [B, 2, 2]
-        jitter = self._jitter(split[:, 0])
-        b = BodyState(*(x.expand((B,) + x.shape).contiguous() for x in self._init_bodies))
-        pos = torch.cat([b.pos[:, :n] + jitter, b.pos[:, n:]], dim=1)
+    def reset_fn(self, key) -> BilliardsState:
+        """``key`` ``[..., 2]`` -> fresh racks, each ball jittered; the key
+        tree ``split(key) -> (jitter, state)`` (``reset_fn_batch`` is this
+        on ``[B, 2]`` keys)."""
+        n, shape = self.n_balls, key.shape[:-1]
+        split = prng.split(key)  # [..., 2, 2]
+        jitter = self._jitter(split[..., 0, :])
+        b = BodyState(*(x.expand(shape + x.shape).contiguous() for x in self._init_bodies))
+        pos = torch.cat([b.pos[..., :n, :] + jitter, b.pos[..., n:, :]], dim=-2)
         return BilliardsState(
             bodies=b._replace(pos=pos),
-            potted=torch.zeros((B, n), dtype=torch.bool, device=keys.device),
-            t=torch.zeros(B, dtype=torch.int32, device=keys.device),
-            key=split[:, 1].contiguous(),
+            potted=torch.zeros(shape + (n,), dtype=torch.bool, device=key.device),
+            t=torch.zeros(shape, dtype=torch.int32, device=key.device),
+            key=split[..., 1, :].contiguous(),
         )
 
     def observe(self, states: BilliardsState):
-        """``[B, 5n]``: per ball x, y, vx, vy and its potted flag."""
+        """``[..., 5n]``: per ball x, y, vx, vy and its potted flag."""
         n = self.n_balls
         b = states.bodies
         per_ball = torch.cat(
-            [b.pos[:, :n], b.vel[:, :n], states.potted[..., None].to(b.pos.dtype)], dim=-1
+            [b.pos[..., :n, :], b.vel[..., :n, :], states.potted[..., None].to(b.pos.dtype)],
+            dim=-1,
         )
-        return per_ball.reshape(per_ball.shape[0], -1)
+        return per_ball.reshape(per_ball.shape[:-2] + (-1,))
+
+    def _pot_hits(self, pos_balls):
+        """``[..., n]`` bool: the ball's centre within ``POCKET_R`` of a corner."""
+        d2 = torch.sum((pos_balls[..., :, None, :] - self._corners) ** 2, dim=-1)
+        return torch.any(d2 <= _POCKET_R2, dim=-1)
+
+    def step_fn(self, state: BilliardsState, action):
+        cfg = self.config
+        n = self.n_balls
+        a = torch.as_tensor(action, dtype=torch.float32, device=state.t.device)
+        a = _clip_c(a.reshape(state.t.shape + (2,)), -1.0, 1.0)
+        b = state.bodies
+
+        # cue acceleration, only while the cue is live
+        live_cue = ~state.potted[..., 0]
+        vel = b.vel.clone()
+        vel[..., 0, :] = vel[..., 0, :] + a * cfg.accel * cfg.dt * live_cue[..., None]
+        b, _ = self.world.step(b._replace(vel=vel))
+        # rolling friction; potted balls stay frozen in their slots
+        damp = torch.where(state.potted[..., None], 0.0, cfg.damping)  # [..., n, 1]
+        vel = torch.cat([b.vel[..., :n, :] * damp, b.vel[..., n:, :]], dim=-2)
+
+        new_pot = self._pot_hits(b.pos[..., :n, :]) & ~state.potted
+        potted = state.potted | new_pot
+        # teleport newly potted balls to their parking slots
+        pos_balls = torch.where(new_pot[..., None], self._park, b.pos[..., :n, :])
+        vel_balls = torch.where(new_pot[..., None], 0.0, vel[..., :n, :])
+        b = b._replace(
+            pos=torch.cat([pos_balls, b.pos[..., n:, :]], dim=-2),
+            vel=torch.cat([vel_balls, vel[..., n:, :]], dim=-2),
+        )
+
+        cue_lost = potted[..., 0]
+        cleared = potted[..., 1:].all(dim=-1)
+        reward = (
+            cfg.pot_reward * new_pot[..., 1:].sum(dim=-1)
+            - cfg.cue_penalty * new_pot[..., 0]
+            + torch.where(cleared & new_pot[..., 1:].any(dim=-1), cfg.clear_bonus, 0.0)
+            - cfg.living_cost
+        )
+        new_state = state._replace(bodies=b, potted=potted, t=state.t + 1)
+        terminated = cue_lost | cleared
+        truncated = (new_state.t >= cfg.max_steps) & ~terminated
+        ts = TimeStep(
+            obs=self.observe(new_state),
+            reward=reward,
+            terminated=terminated,
+            truncated=truncated,
+            info={"potted": potted, "cue_lost": cue_lost, "cleared": cleared},
+        )
+        return new_state, ts
 
     # -- plane hooks; aux = potted [n_balls, B] float 0/1 planes ------------
 

@@ -8,9 +8,8 @@ else comes from ``envs/plane_env.PlaneEnvMixin``.  Its pair groups are
 ball-ball (``cc``) and ball-wall (``cb``); the contact solve runs as the
 CUDA kernel when the world's tensors are on a GPU
 (``WorldConfig.use_cuda_solver``, the twin of ``use_pallas_solver``).
-
-Not ported: the per-world ``reset_fn``/``step_fn`` (ROADMAP Queue 1 item
-11).
+The per-world ``reset_fn``/``step_fn`` (states with any leading batch
+axes, ``envs/base.py``) step through ``World.step``.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ import torch
 from parallax_tpu_torch.dynamics.bodies import BodyState
 from parallax_tpu_torch.engine.batched import _clip_c
 from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
-from parallax_tpu_torch.envs.base import Environment
+from parallax_tpu_torch.envs.base import BatchedEnvironmentMixin, Environment, TimeStep
 from parallax_tpu_torch.envs.plane_env import PlaneEnvMixin, init_planes_of
 from parallax_tpu_torch.geometry.math import safe_norm
 from parallax_tpu_torch.geometry.shapes import box, circle
@@ -52,7 +51,7 @@ class BouncerState(NamedTuple):
     key: torch.Tensor  # [B, 2] int64 holding uint32 key words
 
 
-class Bouncer(PlaneEnvMixin, Environment):
+class Bouncer(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
     """Batched Bouncer on ``device`` (the GPU unless the caller asks for the
     CPU); see the module docstring."""
 
@@ -98,23 +97,43 @@ class Bouncer(PlaneEnvMixin, Environment):
     def observation_size(self) -> int:
         return 6 * self.world.n_bodies
 
-    def reset_fn_batch(self, keys) -> BouncerState:
-        """``keys`` ``[B, 2]`` -> fresh states; each world keeps its key."""
-        B = keys.shape[0]
+    def reset_fn(self, key) -> BouncerState:
+        """``key`` ``[..., 2]`` -> the initial state; each world keeps its
+        key (``reset_fn_batch`` is this on ``[B, 2]`` keys)."""
+        shape = key.shape[:-1]
         bodies = BodyState(
-            *(x.expand((B,) + x.shape).contiguous() for x in self._init_bodies)
+            *(x.expand(shape + x.shape).contiguous() for x in self._init_bodies)
         )
         return BouncerState(
             bodies=bodies,
-            t=torch.zeros(B, dtype=torch.int32, device=keys.device),
-            key=keys.contiguous(),
+            t=torch.zeros(shape, dtype=torch.int32, device=key.device),
+            key=key.contiguous(),
         )
 
     def observe(self, states: BouncerState):
-        """``[B, 6n]``: x, y, vx, vy, angle and omega of every body."""
+        """``[..., 6n]``: x, y, vx, vy, angle and omega of every body."""
         b = states.bodies
         return torch.cat([b.pos[..., 0], b.pos[..., 1], b.vel[..., 0],
                           b.vel[..., 1], b.angle, b.omega], dim=-1)
+
+    def step_fn(self, state: BouncerState, action):
+        cfg = self.config
+        shape = state.t.shape
+        a = torch.as_tensor(action, dtype=torch.float32, device=state.t.device)
+        a = _clip_c(a.reshape(shape + (2,)), -1.0, 1.0)
+        vel = state.bodies.vel.clone()
+        vel[..., 0, :] = vel[..., 0, :] + a * cfg.accel * cfg.dt
+        b, _ = self.world.step(state.bodies._replace(vel=vel))
+        new_state = state._replace(bodies=b, t=state.t + 1)
+        d = safe_norm(b.pos[..., 0, :])
+        reward = -d * cfg.dt - cfg.control_cost * torch.sum(a * a, dim=-1)
+        return new_state, TimeStep(
+            obs=self.observe(new_state),
+            reward=reward,
+            terminated=torch.zeros(shape, dtype=torch.bool, device=state.t.device),
+            truncated=new_state.t >= cfg.max_steps,
+            info={},
+        )
 
     # -- the generic plane-space hooks: thrust + reward, nothing else -------
 

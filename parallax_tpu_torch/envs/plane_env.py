@@ -9,8 +9,9 @@ step-limit truncation, the auto-reset key tree (``split(key) -> (reset,
 carry)``), the done-merge of fresh and live planes, and chunked waves.
 PyTorch runs eagerly, so ``lax.scan`` becomes a Python loop.  The same
 step gives ``step_batch``, one batched step of batch-major states; it
-stands in for JAX's ``BatchedEnvironmentMixin.step_batch`` over
-``step_fn_batch``, with the same watchdog, key tree and results.
+stands in for JAX's ``BatchedEnvironmentMixin.step_batch`` over the plane
+``step_fn_batch``, with the same watchdog, key tree and results, and the
+envs inherit it before ``envs/base.BatchedEnvironmentMixin``'s.
 """
 
 from __future__ import annotations

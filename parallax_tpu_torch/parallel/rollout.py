@@ -1,12 +1,12 @@
-"""Batched rollouts and the differentiable-physics train step (one device).
+"""Rollouts and the differentiable-physics train step (one device).
 
 The port of ``parallel/rollout.py``'s ``ROLLOUT_CHUNK``, the single-device
-path of ``chunked_rollout``, ``batched_rollout``'s plane-space fast path
-and ``make_train_step``.  ``jax.checkpoint`` becomes
+path of ``chunked_rollout``, the per-world ``rollout``, ``batched_rollout``
+(the plane-space fast path, else ``rollout`` on the batch, the port of
+its ``vmap`` fallback) and ``make_train_step``.  ``jax.checkpoint`` becomes
 ``torch.utils.checkpoint`` (non-reentrant), ``lax.scan`` a Python loop and
 ``optax.adam`` ``torch.optim.Adam`` with optax's defaults.  The mesh path
-(ROADMAP Queue 1 item 9) and the per-world ``vmap`` fallback (Queue 1
-item 11) are not ported yet and raise.
+(ROADMAP Queue 1 item 9) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -47,18 +47,7 @@ def chunked_rollout(rollout_fn: Callable, states, batch: int,
     return final, traj
 
 
-def batched_rollout(env, states, policy_fn, policy_params, n_steps,
-                    checkpoint_segments=0, max_chunk=None, mesh=None,
-                    remat_steps=False, traj_select=None):
-    """Batched rollout through the env's plane-space fast path
-    (``env.rollout_batch``): ``(final_states, trajectory)``, the trajectory
-    time-major ``[n_steps, B, ...]``.
-
-    With ``checkpoint_segments > 0`` the rollout runs as that many segments,
-    each under ``torch.utils.checkpoint``: under autograd only the segment
-    boundaries are kept and each segment is recomputed in the backward.
-    ``remat_steps`` additionally checkpoints each step inside a segment
-    (see ``PlaneEnvMixin.rollout_batch``)."""
+def _check_segments(n_steps: int, checkpoint_segments: int) -> None:
     if checkpoint_segments and n_steps % checkpoint_segments != 0:
         # a silent fallback here once cost the JAX package an out-of-memory
         # on a horizon-100 lander backward pass: reject loudly instead
@@ -66,26 +55,79 @@ def batched_rollout(env, states, policy_fn, policy_params, n_steps,
             f"checkpoint_segments={checkpoint_segments} must divide "
             f"n_steps={n_steps}"
         )
+
+
+def _segments(run, state, n_steps: int, checkpoint_segments: int):
+    """``run(state, steps) -> (state, traj)`` over ``n_steps``, or as
+    ``checkpoint_segments`` segments each under ``torch.utils.checkpoint``
+    (under autograd only the segment boundaries are kept and each segment
+    is recomputed in the backward); the trajectories joined time-major."""
+    _check_segments(n_steps, checkpoint_segments)
+    if not checkpoint_segments:
+        return run(state, n_steps)
+    seg = n_steps // checkpoint_segments
+    trajs = []
+    for _ in range(checkpoint_segments):
+        state, traj = checkpoint(run, state, seg, use_reentrant=False)
+        trajs.append(traj)
+    return state, tree_map(lambda *xs: torch.cat(xs, dim=0), *trajs)
+
+
+def rollout(env, state, policy_fn: Callable, policy_params, n_steps: int,
+            checkpoint_segments: int = 0):
+    """Roll a policy for ``n_steps`` through ``env.step`` (per world, any
+    leading batch axes): ``(final_state, TimeStep trajectory)``, the
+    trajectory time-major ``[n_steps, ...]``.
+
+    ``policy_fn(params, obs) -> action``.  With ``checkpoint_segments > 0``
+    the loop runs as that many segments under ``torch.utils.checkpoint``,
+    so reverse-mode memory scales with the segment count, not the steps.
+    """
+
+    def run(state, steps):
+        tss = []
+        for _ in range(steps):
+            action = policy_fn(policy_params, env.observe(state))
+            state, ts = env.step(state, action)
+            tss.append(ts)
+        return state, tree_map(lambda *xs: torch.stack(xs), *tss)
+
+    return _segments(run, state, n_steps, checkpoint_segments)
+
+
+def batched_rollout(env, states, policy_fn, policy_params, n_steps,
+                    checkpoint_segments=0, max_chunk=None, mesh=None,
+                    remat_steps=False, traj_select=None):
+    """Batched rollout: ``(final_states, trajectory)``, the trajectory
+    time-major ``[n_steps, B, ...]``.  It runs the env's plane-space fast
+    path (``env.rollout_batch``) where the env has one, else
+    :func:`rollout` on the batch (the port of JAX's ``vmap`` fallback),
+    with ``traj_select`` applied after the fact.
+
+    With ``checkpoint_segments > 0`` the rollout runs as that many segments,
+    each under ``torch.utils.checkpoint``: under autograd only the segment
+    boundaries are kept and each segment is recomputed in the backward.
+    ``remat_steps`` additionally checkpoints each step inside a segment
+    (see ``PlaneEnvMixin.rollout_batch``)."""
+    _check_segments(n_steps, checkpoint_segments)
     fast = getattr(env, "rollout_batch", None)
     if fast is None:
-        raise NotImplementedError(
-            "batched_rollout needs the env's plane-space fast path "
-            "(env.rollout_batch): the per-world vmap fallback is not ported "
-            "yet (ROADMAP Queue 1 item 11)"
-        )
+        if max_chunk or mesh is not None or remat_steps:
+            # the fallback has no wave machinery: running one giant wave
+            # where the caller asked for waves would be a silent change
+            raise ValueError(
+                "max_chunk/mesh/remat_steps require the plane-space fast path "
+                "(env.rollout_batch); this env only has the per-world fallback"
+            )
+        final, tss = rollout(env, states, policy_fn, policy_params, n_steps,
+                             checkpoint_segments)
+        return final, traj_select(tss) if traj_select is not None else tss
 
     def run(s, steps):
         return fast(s, policy_fn, steps, policy_params, max_chunk=max_chunk,
                     mesh=mesh, remat_steps=remat_steps, traj_select=traj_select)
 
-    if not checkpoint_segments:
-        return run(states, n_steps)
-    seg = n_steps // checkpoint_segments
-    trajs = []
-    for _ in range(checkpoint_segments):
-        states, traj = checkpoint(run, states, seg, use_reentrant=False)
-        trajs.append(traj)
-    return states, tree_map(lambda *xs: torch.cat(xs, dim=0), *trajs)
+    return _segments(run, states, n_steps, checkpoint_segments)
 
 
 def adam(params: dict, lr: float = 3e-3) -> torch.optim.Adam:

@@ -98,6 +98,40 @@ def robocup_state_to_numpy(state) -> dict:
     return out
 
 
+def bouncer_state_from_numpy(d: dict, device="cuda"):
+    """``{field: array}`` -> ``BouncerState``.  The fields are
+    ``bodies.pos``, ``bodies.vel``, ``bodies.angle``, ``bodies.omega``,
+    ``t`` and ``key`` (uint32)."""
+    from parallax_tpu_torch.envs.bouncer import BouncerState
+
+    return BouncerState(*robocup_state_from_numpy(d, device))
+
+
+def bouncer_state_to_numpy(state) -> dict:
+    """``BouncerState`` -> ``{field: array}`` (the fields of
+    :func:`bouncer_state_from_numpy`)."""
+    return robocup_state_to_numpy(state)
+
+
+def billiards_state_from_numpy(d: dict, device="cuda"):
+    """``{field: array}`` -> ``BilliardsState``.  The fields are
+    ``bodies.pos``, ``bodies.vel``, ``bodies.angle``, ``bodies.omega``,
+    ``potted`` (bool), ``t`` and ``key`` (uint32)."""
+    from parallax_tpu_torch.envs.billiards import BilliardsState
+
+    bodies, t, key = robocup_state_from_numpy(d, device)
+    potted = torch.tensor(np.asarray(d["potted"], bool), device=t.device)
+    return BilliardsState(bodies=bodies, potted=potted, t=t, key=key)
+
+
+def billiards_state_to_numpy(state) -> dict:
+    """``BilliardsState`` -> ``{field: array}`` (the fields of
+    :func:`billiards_state_from_numpy`)."""
+    out = robocup_state_to_numpy(state)
+    out["potted"] = state.potted.detach().cpu().numpy()
+    return out
+
+
 def body_state_from_numpy(d, device="cuda") -> BodyState:
     """``{pos, vel, angle, omega}`` arrays (a dict, or anything with those
     attributes, such as the JAX package's ``BodyState`` read with

@@ -5,7 +5,8 @@ draws each world's terrain and its auto-reset keys from it, so the port
 reproduces jax's bits exactly: same key in, same terrain out.  This
 follows jax 0.9's defaults, ``jax_threefry_partitionable=True`` and the
 ``threefry2x32`` implementation (``jax/_src/prng.py``:
-``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``,
+``_threefry_split_foldlike``, ``_threefry_fold_in``,
+``_threefry_random_bits_partitionable``,
 ``_threefry2x32_lowering``; ``jax/_src/random.py``: ``_uniform``, and
 the draws the per-world random solvers consume: ``bernoulli``,
 ``gumbel``, ``categorical`` and ``choice``).
@@ -54,6 +55,15 @@ def split(keys, num: int = 2):
     """``jax.random.split`` over a batch: ``[..., 2]`` -> ``[..., num, 2]``."""
     hi, lo = _counters(num, keys)
     b1, b2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], hi, lo)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(keys, data: int):
+    """``jax.random.fold_in`` over a batch: ``[..., 2]`` keys and one
+    uint32 ``data`` -> ``[..., 2]``, the threefry hash of the counters
+    ``(0, data)`` (jax's ``threefry_seed(data)``) under each key."""
+    k1, k2 = keys[..., 0], keys[..., 1]
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(k1), torch.full_like(k1, int(data) & _MASK))
     return torch.stack([b1, b2], dim=-1)
 
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import torch
+
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
@@ -26,3 +28,19 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_select(pred, on_true, on_false):
+    """``torch.where(pred, on_true, on_false)`` over every leaf: ``pred``
+    is a bool tensor of the trees' batch shape (or a scalar), given one
+    trailing dim for each dim a leaf has beyond it (the JAX package's
+    ``tree_select``, the in-graph auto-reset's select)."""
+
+    def sel(t, f):
+        p = pred
+        extra = max(t.ndim, f.ndim) - p.ndim
+        if extra > 0:
+            p = p.reshape(p.shape + (1,) * extra)
+        return torch.where(p, t, f)
+
+    return tree_map(sel, on_true, on_false)

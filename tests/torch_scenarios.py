@@ -867,3 +867,132 @@ def hold_config3(got, want):
                              "final heights")):
         assert e <= bar, f"config 3 {what}: {e} > {bar}"
     return errs
+
+
+# -- the per-world env API (envs/base.py) --------------------------------------
+
+
+def golden_env_rollout(env, B, seed, n_steps, action_at):
+    """``([n_steps // 10, B, n, 6] frames, [n_steps, B] rewards)`` of golden
+    configs 4, 4k and 5's scripted rollout: ``env.step`` (the port of
+    ``vmap(env.step)``) from ``env.reset_fn`` of ``split(PRNGKey(seed), B)``,
+    the frames (pos, vel, angle, omega) after steps 1, 11, 21, ...
+    (``tests/test_golden_parity.py:140-290``)."""
+    from parallax_tpu_torch.utils import prng
+
+    dev = env.device
+    st = env.reset_fn(prng.split(torch.tensor([0, seed], device=dev), B))
+    frames, rewards = [], []
+    with torch.no_grad():
+        for t in range(n_steps):
+            a = action_at(torch.tensor(t, dtype=torch.int32, device=dev))
+            st, ts = env.step(st, a.expand(B, -1))
+            b = st.bodies
+            frames.append(torch.cat([b.pos, b.vel, b.angle[..., None], b.omega[..., None]], -1))
+            rewards.append(ts.reward)
+    return torch.stack(frames)[::10].cpu().numpy(), torch.stack(rewards).cpu().numpy()
+
+
+def golden_lander_action(t):
+    """Configs 4 and 4k: the main engine ramping down, slight side pulses."""
+    return torch.stack([torch.clamp(1.0 - t / 80.0, 0.0, 1.0), 0.3 * torch.sin(t / 7.0)])
+
+
+def golden_robocup_action(n_robots):
+    """Config 5: phase-shifted velocity commands, every robot moving."""
+
+    def action_at(t):
+        phase = torch.arange(n_robots, dtype=torch.float32, device=t.device) * 0.7
+        vx = 1.2 * torch.sin(t / 9.0 + phase)
+        vy = 0.8 * torch.cos(t / 11.0 + phase)
+        w = 0.5 * torch.sin(t / 5.0 + phase)
+        return torch.stack([vx, vy, w], dim=-1).reshape(-1)
+
+    return action_at
+
+
+# golden config: (env, solver_mode, B, seed, steps)
+GOLDEN_ENV_CASES = {
+    "config4": ("lander", "random_one_per_body", 4, 7, 60),
+    "config4k": ("lander", "random_one_per_body_keyed", 2, 7, 40),
+    "config5": ("robocup", "random_one_per_body", 4, 11, 80),
+}
+
+
+def golden_env_case(name, device="cpu"):
+    """Golden config ``name``'s ``(frames, rewards)`` from the port's env in
+    reference mode (``narrowphase="gjk_epa"``,
+    ``ContactSolverConfig.reference()``, no broadphase) on ``device``."""
+    from parallax_tpu_torch.dynamics.impulses import ContactSolverConfig
+    from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
+    from parallax_tpu_torch.envs.robocup import RoboCup, RoboCupConfig
+
+    kind, mode, B, seed, steps = GOLDEN_ENV_CASES[name]
+    ref = dict(narrowphase="gjk_epa", contact=ContactSolverConfig.reference(),
+               broadphase=False, solver_mode=mode)
+    if kind == "lander":
+        env = LunarLander(LanderConfig(**ref), device=device)
+        return golden_env_rollout(env, B, seed, steps, golden_lander_action)
+    env = RoboCup(RoboCupConfig(**ref), device=device)
+    return golden_env_rollout(env, B, seed, steps, golden_robocup_action(env.n_robots))
+
+
+def hold_golden_env(name, got, golden):
+    """Config ``name``'s frames and rewards against the golden's within
+    1e-5, finite; config 5 also within the golden's own sanity bounds.
+    Returns the largest frame and reward differences."""
+    traj, rew = got
+    want_t, want_r = golden[f"{name}_traj"], golden[f"{name}_reward"]
+    assert traj.shape == want_t.shape and rew.shape == want_r.shape, name
+    assert np.isfinite(traj).all() and np.isfinite(rew).all(), f"{name}: not finite"
+    errs = float(np.abs(traj - want_t).max()), float(np.abs(rew - want_r).max())
+    assert errs[0] <= 1e-5 and errs[1] <= 1e-5, f"{name}: frames {errs[0]}, rewards {errs[1]}"
+    if name == "config5":
+        ball, robots = traj[:, :, 4, :2], traj[:, :, 5:, :2]
+        assert (np.abs(ball[..., 0]) < 5.3).all() and (np.abs(ball[..., 1]) < 3.8).all()
+        assert np.abs(ball[-1] - ball[0]).max() > 0.05
+        assert np.abs(robots[-1] - robots[0]).max() > 0.1
+    return errs
+
+
+def lander_scene(env, B, seed=0):
+    """``reset_fn`` states of the lander (each world its own terrain) in four
+    kinds by world index mod 4: 0 sliding on its pad (legs touching, 0.2
+    sideways), 1 set down on its pad (it lands and resets), 2 out of bounds
+    (it crashes and resets), 3 free flight."""
+    k = np.random.default_rng(seed).integers(0, 2**32, (B, 2), dtype=np.uint32)
+    st = env.reset_fn(torch.from_numpy(k.astype(np.int64)).to(env.device))
+    w = torch.arange(B, device=env.device) % 4
+    zero = torch.zeros(B, device=env.device)
+    pos, vel = st.bodies.pos.clone(), st.bodies.vel.clone()
+    pos[:, :3, 1] -= torch.where(w == 0, 6.25, torch.where(w == 1, 6.2, zero))[:, None]
+    pos[:, :3, 0] += torch.where(w == 2, 16.0, zero)[:, None]
+    vel[:, :3, 0] += torch.where(w == 0, 0.2, zero)[:, None]
+    return st._replace(bodies=st.bodies._replace(pos=pos, vel=vel))
+
+
+def robocup_scene(env, B, seed=0):
+    """``reset_fn`` states of RoboCup in two kinds by world index mod 2: 0
+    the ball at x=-4.55 flying into the yellow goal (blue scores in the
+    first step, the episode ends and resets), 1 the first blue robot beside
+    the first yellow one."""
+    k = np.random.default_rng(seed).integers(0, 2**32, (B, 2), dtype=np.uint32)
+    st = env.reset_fn(torch.from_numpy(k.astype(np.int64)).to(env.device))
+    bi, r0, N = env.ball_idx, int(env.robot_idx[0]), env.config.n_robots_per_team
+    pos, vel = st.bodies.pos.clone(), st.bodies.vel.clone()
+    goal = torch.arange(B, device=env.device) % 2 == 0
+    pos[goal, bi] = torch.tensor([-4.55, 0.0], device=env.device)
+    vel[goal, bi] = torch.tensor([-3.0, 0.0], device=env.device)
+    pos[~goal, r0] = pos[~goal, r0 + N] + torch.tensor([0.15, 0.0], device=env.device)
+    return st._replace(bodies=st.bodies._replace(pos=pos, vel=vel))
+
+
+def env_actions(env, n, B, seed=0):
+    """``[n, B, action_size]`` seeded actions: the lander's main throttle in
+    [0, 1] and side in [-1, 1]; RoboCup's commands in [-2, 2]."""
+    rng = np.random.default_rng(seed)
+    if env.action_size == 2:
+        a = np.stack([rng.uniform(0, 1, (n, B)), rng.uniform(-1, 1, (n, B))], -1)
+    else:
+        a = rng.uniform(-2.0, 2.0, (n, B, env.action_size))
+    return torch.from_numpy(a.astype(np.float32)).to(env.device)
