@@ -42,6 +42,14 @@ the card agrees with the same run on the CPU:
   and the gradient of ``crate_kick_loss`` through 100 steps (the reverse
   kernels); and the JAX tests' mixed and area worlds on the split step.
 
+* the fleet (phase 8, ``parallel/mesh.py``): a one-rank NCCL world mesh
+  at B=8192 and ``max_chunk=4096`` (two waves), the lander's
+  ``rollout_batch(mesh=)``, its split and fused train steps (one gradient
+  all-reduce) bitwise equal to the calls without a mesh, with the
+  kernels' launches and the collectives counted; two gloo ranks on the
+  card, each with half of the same 8,192 worlds, against the one-process
+  train step; ``parallel/dryrun.py:dryrun_multichip`` on the mesh.
+
 All four kernels run one warp per world, several worlds a block
 (``contact_solver.WORLDS_PER_BLOCK``); phase 3 holds each to the bit
 across two launches and across plans of 2, 4 and 8 worlds a block, times
@@ -2163,6 +2171,214 @@ def crate_train(gpu):
     return res
 
 
+FLEET_CHUNK = 4096  # phase 8: two waves of the B=8192 fleet
+FLEET_FUSED_H = 12  # phase 8: the fused train step's horizon
+
+
+def tree_equal(a, b):
+    """Every tensor leaf of two trees equal to the bit."""
+    from parallax_tpu_torch.utils.pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def kernel_counts():
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+
+    return (contact_solver.launches, contact_solver.bwd_launches,
+            fused_step.launches, fused_step.bwd_launches)
+
+
+def zero_counts():
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+
+    contact_solver.launches = contact_solver.bwd_launches = 0
+    fused_step.launches = fused_step.bwd_launches = 0
+
+
+def fleet_train(env, mesh, horizon, segments, states):
+    """One train step (the 9-32-2 MLP, Adam at 3e-3) on ``mesh`` or without
+    one (None), from ``states``: ``(seconds, loss, grads, kernel counts,
+    collectives)``; the counts start from 0 just before the step."""
+    from parallax_tpu_torch.parallel import rollout
+    from torch_fleet_worker import counting_collectives
+
+    params = mlp_params(states.t.device)
+    step = rollout.make_train_step(env, mlp, rollout.adam(params, 3e-3), horizon,
+                                   checkpoint_segments=segments, max_chunk=FLEET_CHUNK,
+                                   mesh=mesh)
+    torch.cuda.synchronize()
+    zero_counts()
+    with counting_collectives() as coll:
+        t0 = time.perf_counter()
+        params, _, m = step(params, states)
+        loss = m["loss"].item()  # synchronizes
+        sec = time.perf_counter() - t0
+    grads = [p.grad.detach().clone() for p in params.values()]
+    return sec, loss, grads, kernel_counts(), dict(coll)
+
+
+def fleet_rank(rank, port, out_dir):
+    """Phase 8 (ii): one of two gloo ranks on the one card; its block of
+    the B=8192 fleet, one split train step of SMALL_H steps."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from parallax_tpu_torch.envs.lunar_lander import LunarLander
+    from parallax_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pmesh.distributed_init(f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+                           backend="gloo", device="cuda")
+    try:
+        mesh = pmesh.make_world_mesh("cuda")
+        env = LunarLander(device="cuda")
+        states = env.reset_fn_batch(pmesh.shard_batch(keys_for(B, 9, "cuda"), mesh))
+        sec, loss, grads, counts, coll = fleet_train(env, mesh, SMALL_H, 2, states)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), sec=sec, loss=loss,
+                 counts=np.array(counts), all_reduce=coll["all_reduce"],
+                 **{f"g{i}": g.cpu().numpy() for i, g in enumerate(grads)})
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def fleet_phase(gpu):
+    """Phase 8, the fleet (``parallel/mesh.py``, the mesh path of the
+    rollouts and the train step, ``parallel/dryrun.py``):
+
+    (i) a one-rank NCCL mesh on the card at B=8192, ``max_chunk=4096`` (2
+    waves): the split lander's ``rollout_batch(mesh=)`` over 100 steps, its
+    train step over 100 steps in 4 segments and the fused lander's train
+    step over 12 steps, each bitwise equal to the same call without a mesh,
+    with the kernels' launches and the collectives counted (none in the
+    rollout, one all-reduce a train step);
+    (ii) two gloo ranks on the one card, each with 4096 of the same 8192
+    worlds: a split train step of 12 steps within LOSS_RTOL/GRAD_RTOL of
+    the one-process step at B=8192, bitwise equal across the ranks;
+    (iii) ``dryrun_multichip`` on the NCCL mesh.
+    Returns each kernel's launches on the mesh path (not the runs without
+    a mesh they are compared with)."""
+    import socket
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
+    from parallax_tpu_torch.parallel import mesh as pmesh
+    from parallax_tpu_torch.parallel.dryrun import dryrun_multichip
+    from torch_fleet_worker import counting_collectives
+
+    dev = torch.device("cuda")
+    mesh = pmesh.make_world_mesh("cuda")
+    check(dist.get_backend() == "nccl" and mesh.size(0) == 1,
+          f"one-rank mesh: backend {dist.get_backend()}, size {mesh.size(0)}")
+    fleet = np.zeros(4, np.int64)  # the mesh path's launches: solver fwd, bwd, fused fwd, bwd
+
+    # (i) the rollout
+    env = LunarLander(device=dev)
+    params = policy_params(dev)
+    states = env.reset_fn_batch(keys_for(B, 8, dev))
+    runs = {}
+    for label, m in (("mesh", mesh), ("plain", None)):
+        torch.cuda.synchronize()
+        zero_counts()
+        with counting_collectives() as coll:
+            t0 = time.perf_counter()
+            out = env.rollout_batch(states, policy, STEPS, params, max_chunk=FLEET_CHUNK, mesh=m)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        runs[label] = (out, sec, kernel_counts(), sum(coll.values()))
+    (out_m, roll_s, counts_m, coll_m), (out_p, roll_plain_s, _, _) = runs["mesh"], runs["plain"]
+    check(tree_equal(out_m, out_p), "fleet rollout: the one-rank NCCL mesh differs from no mesh")
+    check(counts_m == (2 * STEPS, 0, 0, 0), f"fleet rollout: launches {counts_m}, "
+          f"want {(2 * STEPS, 0, 0, 0)} (2 waves x {STEPS} steps)")
+    check(coll_m == 0, f"fleet rollout: {coll_m} collectives")
+    check(torch.isfinite(out_m[1].obs).all().item(), "fleet rollout: non-finite obs")
+    fleet += counts_m
+    print(f"[fleet] rollout_batch B={B} x {STEPS} steps, max_chunk={FLEET_CHUNK}, one-rank "
+          f"NCCL mesh: bitwise equal to no mesh, solver launches {counts_m[0]}, collectives 0; "
+          f"{roll_s:.3f} s (no mesh {roll_plain_s:.3f} s) on {gpu}")
+
+    # (i) the split and fused train steps
+    env_f = LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True), device=dev)
+    train = {}
+    for label, e, h, seg, want in (
+        ("split", env, HORIZON, SEGMENTS, (4 * HORIZON, 2 * HORIZON, 0, 0)),
+        ("fused", env_f, FLEET_FUSED_H, 2, (0, 0, 4 * FLEET_FUSED_H, 2 * FLEET_FUSED_H)),
+    ):
+        st = e.reset_fn_batch(keys_for(B, 7, dev))
+        sec_p, loss_p, g_p, _, _ = fleet_train(e, None, h, seg, st)
+        sec_m, loss_m, g_m, counts, coll = fleet_train(e, mesh, h, seg, st)
+        check(np.isfinite(loss_m), f"fleet {label} train step: non-finite loss")
+        check(loss_m == loss_p and all(torch.equal(a, b) for a, b in zip(g_m, g_p)),
+              f"fleet {label} train step: the one-rank NCCL mesh's loss or gradients differ "
+              f"from no mesh ({loss_m} vs {loss_p})")
+        check(counts == want, f"fleet {label} train step: launches (solver fwd, bwd, fused fwd, "
+              f"bwd) {counts}, want {want} (2 waves x {h} steps, forward and recompute)")
+        check(coll["all_reduce"] == 1 and sum(coll.values()) == 1,
+              f"fleet {label} train step: collectives {coll}, want one all_reduce")
+        fleet += counts
+        train[label] = {"s": sec_m, "plain_s": sec_p, "loss": loss_m}
+        print(f"[fleet] {label} train step B={B} h={h} segments={seg} max_chunk={FLEET_CHUNK}, "
+              f"one-rank NCCL mesh: loss {loss_m:.6f}, loss and gradients bitwise equal to no "
+              f"mesh, launches {counts}, one all_reduce; {sec_m:.3f} s (no mesh {sec_p:.3f} s) "
+              f"on {gpu}")
+
+    # the train step's one collective alone: the all-reduce of its bucket
+    # (the 9-32-2 MLP's 386 gradients, the loss and the return)
+    bucket = torch.ones(388, device=dev)
+    for _ in range(10):
+        dist.all_reduce(bucket)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        dist.all_reduce(bucket)
+    torch.cuda.synchronize()
+    all_reduce_ms = (time.perf_counter() - t0) * 10.0
+    print(f"[fleet] all_reduce of the train step's 388-float bucket on the one-rank NCCL "
+          f"group: {all_reduce_ms:.4f} ms a call (host clock, 100 calls) on {gpu}")
+
+    # (ii) two gloo ranks on the one card against the one-process step
+    st = env.reset_fn_batch(keys_for(B, 9, dev))
+    _, loss_1, g_1, _, _ = fleet_train(env, None, SMALL_H, 2, st)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "fleet")
+    os.makedirs(out_dir, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.start_processes(fleet_rank, args=(port, out_dir), nprocs=2, join=True,
+                       start_method="spawn")
+    sec_2 = time.perf_counter() - t0
+    ranks = [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(2)]
+    for k in ranks[0]:
+        if k not in ("sec",):
+            check(np.array_equal(ranks[0][k], ranks[1][k]), f"fleet 2 ranks: {k} differs")
+    for r in ranks:
+        check(tuple(r["counts"]) == (2 * SMALL_H, SMALL_H, 0, 0) and int(r["all_reduce"]) == 1,
+              f"fleet 2 ranks: launches {r['counts']}, all_reduce {r['all_reduce']}")
+    loss_2 = float(ranks[0]["loss"])
+    loss_rel = abs(loss_2 - loss_1) / abs(loss_1)
+    grad_rel = max(np.linalg.norm(ranks[0][f"g{i}"] - g.cpu().numpy())
+                   / np.linalg.norm(g.cpu().numpy()) for i, g in enumerate(g_1))
+    check(loss_rel <= LOSS_RTOL, f"fleet 2 ranks: loss rel diff {loss_rel} to one process")
+    check(grad_rel <= GRAD_RTOL, f"fleet 2 ranks: gradient rel diff {grad_rel} to one process")
+    fleet += sum(np.asarray(r["counts"]) for r in ranks)
+    print(f"[fleet] 2 gloo ranks on one card, {B // 2} worlds each, split train step h={SMALL_H}: "
+          f"loss {loss_2:.7f} vs one process {loss_1:.7f} (rel {loss_rel:.2e}), gradients max "
+          f"rel diff in norm {grad_rel:.2e}, the ranks bitwise equal; rank step "
+          f"{float(ranks[0]['sec']):.3f} s, spawn to join {sec_2:.1f} s on {gpu}")
+
+    # (iii) the dry run on the NCCL mesh
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(mesh)
+    print(f"[fleet] dryrun_multichip on the one-rank NCCL mesh: {dry}, "
+          f"{time.perf_counter() - t0:.2f} s on {gpu}")
+    dist.destroy_process_group()
+    return {"launches": [int(x) for x in fleet], "train": train, "rollout_s": roll_s,
+            "rollout_plain_s": roll_plain_s, "all_reduce_ms": all_reduce_ms,
+            "two_ranks_s": sec_2}
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -2614,6 +2830,9 @@ def main():
     rc_train = robocup_train(env_b, gpu)
     lap("phase 7 on the crate pile starts")
     crate_grad = crate_train(gpu)
+    lap("phase 8 (the fleet) starts")
+    fleet = fleet_phase(gpu)
+    print("[fleet] " + json.dumps(fleet))
     lap("done")
     print(json.dumps({"kernels": [
         {
@@ -2624,7 +2843,7 @@ def main():
             # the lander's rollout, the circle worlds' split rollouts and
             # the crate pile's split step_batched
             "launches": launches + sum(circle[f"{k} split"][1][0] for k in solves)
-            + rc_paths["robocup split"][1][0] + crate_rates["split"][1][0],
+            + rc_paths["robocup split"][1][0] + crate_rates["split"][1][0] + fleet["launches"][0],
             "max_abs_err": max(max_err, large["billiards61"]["solve"]["max_abs_err"]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -2636,6 +2855,7 @@ def main():
             "crates": {"launches": crate_rates["split"][1][0], **crates["crates"]["solve"]},
             "mixed": crates["mixed"]["solve"],
             "billiards61": large["billiards61"]["solve"],
+            "fleet": {"launches": fleet["launches"][0]},
             **plans["contact_solve_fwd"],
         },
         {
@@ -2646,7 +2866,7 @@ def main():
             # the lander's and RoboCup's split train steps and the crate
             # pile's split gradient
             "launches": train["split"][1][1] + rc_train["robocup split"][1][1]
-            + crate_grad["split"][1][1],
+            + crate_grad["split"][1][1] + fleet["launches"][1],
             "max_abs_err": max(bwd_err, rc["solve_bwd"]["max_abs_err"],
                                crates["crates"]["solve_bwd"]["max_abs_err"],
                                large["billiards61"]["solve_bwd"]["max_abs_err"]),
@@ -2660,6 +2880,7 @@ def main():
             # a reading on random drops: no bar (see crate_kernels)
             "mixed": crates["mixed"]["solve_bwd"],
             "billiards61": large["billiards61"]["solve_bwd"],
+            "fleet": {"launches": fleet["launches"][1]},
             **plans["contact_solve_bwd"],
         },
         {
@@ -2672,7 +2893,7 @@ def main():
             # RoboCup's (cc, cb, area_cb) and the crate pile's (bb, cb, cc)
             "launches": fused_launches + circle["billiards8 fused"][1][1]
             + rc_paths["robocup fused"][1][1] + crate_rates["fused"][1][1]
-            + circle["billiards48 fused"][1][1],
+            + circle["billiards48 fused"][1][1] + fleet["launches"][2],
             "max_abs_err": max([fused_err, rc["fwd"]["max_abs_err"], crates["fwd"]["max_abs_err"]]
                                + [v["fwd"]["max_abs_err"] for v in large.values()]),
             "ms": fused_ms,
@@ -2695,6 +2916,7 @@ def main():
                             **large["billiards48"]["fwd"]},
             "billiards61": large["billiards61"]["fwd"],
             "override": large["override"]["fwd"],
+            "fleet": {"launches": fleet["launches"][2]},
             **plans["fused_step_fwd"],
         },
         {
@@ -2707,7 +2929,7 @@ def main():
             # cue objective and the crate pile's fused gradient
             "launches": train["fused"][1][3] + rc_train["robocup fused"][1][3]
             + rc_train["billiards8 fused cue objective"][1][3] + crate_grad["fused"][1][3]
-            + large["billiards48"]["bwd"]["launches"],
+            + large["billiards48"]["bwd"]["launches"] + fleet["launches"][3],
             "max_abs_err": max([fbwd_err, rc["bwd"]["max_abs_err"],
                                 rc["bwd_billiards8"]["max_abs_err"], crates["bwd"]["max_abs_err"]]
                                + [v["bwd"]["max_abs_err"] for v in large.values()]),
@@ -2722,6 +2944,7 @@ def main():
             "billiards48": large["billiards48"]["bwd"],
             "billiards61": large["billiards61"]["bwd"],
             "override": large["override"]["bwd"],
+            "fleet": {"launches": fleet["launches"][3]},
             **plans["fused_step_bwd"],
         },
     ]}))

@@ -24,7 +24,7 @@ import dataclasses
 
 import torch
 
-from parallax_tpu_torch.geometry.math import _max_c, _min_c, cross2, perpendicular_vector, safe_norm
+from parallax_tpu_torch.geometry.math import _abs_j, _max_c, _min_c, cross2, perpendicular_vector, safe_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,7 +121,7 @@ def contact_impulse(
         j_d = torch.minimum(_max_c(-vd_norm / safe_k, 0.0), j_n * mu)
     else:
         # the Coulomb clamp |j_t| <= mu |j_n|
-        j_d = torch.maximum(-vd_norm / safe_k, -mu * torch.abs(j_n))
+        j_d = torch.maximum(-vd_norm / safe_k, -mu * _abs_j(j_n))
     impulse = impulse + j_d[..., None] * vd_unit
 
     separating = torch.sum(pen * v_rel, dim=-1) < 0

@@ -36,7 +36,7 @@ from parallax_tpu_torch.engine.batched import _clip_c, _SoA, physics_core
 from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
 from parallax_tpu_torch.envs.base import BatchedEnvironmentMixin, Environment, Judge, TimeStep
 from parallax_tpu_torch.envs.plane_env import PlaneEnvMixin, init_planes_of
-from parallax_tpu_torch.geometry.math import rotate, safe_norm
+from parallax_tpu_torch.geometry.math import _abs_j, rotate, safe_norm
 from parallax_tpu_torch.geometry.shapes import MAX_VERTS, polygon
 from parallax_tpu_torch.utils import prng
 from parallax_tpu_torch.utils.device import resolve as resolve_device
@@ -188,6 +188,14 @@ def terrain_vertices_batch(keys):
     qx, qy = terrain_planes_batch(keys)
     terrain = torch.stack([qx, qy], dim=2)  # [7, V, 2, B]
     return terrain.permute(3, 0, 1, 2).reshape(keys.shape[0], -1)
+
+
+def terrain_vertices(key):
+    """One world's terrain: ``key`` ``[2]`` -> ``[7, MAX_VERTS, 2]``
+    clockwise-ordered, repeat-padded world-frame quads (the JAX package's
+    per-world sampler), bit-equal to its row of
+    :func:`terrain_vertices_batch`."""
+    return terrain_vertices_batch(key[None])[0].reshape(N_TERRAIN, MAX_VERTS, 2)
 
 
 class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
@@ -393,7 +401,7 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
         return (
             -1.0 * dist
             - 1.0 * speed
-            - 1.0 * torch.abs(b.angle[..., 0])
+            - 1.0 * _abs_j(b.angle[..., 0])
             + 0.3 * torch.sum(leg_contacts, dim=-1)
         )
 
@@ -463,7 +471,7 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
             shaping
             - state.prev_shaping
             - cfg.fuel_cost_main * main
-            - cfg.fuel_cost_side * torch.abs(side)
+            - cfg.fuel_cost_side * _abs_j(side)
         )
         reward = reward + torch.where(landed, cfg.landed_bonus, 0.0)
         reward = reward + torch.where(crashed, cfg.crash_penalty, 0.0)
@@ -478,7 +486,7 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
                 "landed": landed,
                 "crashed": crashed,
                 "leg_contacts": leg_contacts,
-                "fuel": main + torch.abs(side),
+                "fuel": main + _abs_j(side),
             },
         )
         return new_state, ts
@@ -498,7 +506,7 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
         vx, vy = bodies.vel[:, 0, 0], bodies.vel[:, 0, 1]
         dist = torch.sqrt(px * px + (py - (PAD_Y + 1.0)) ** 2)
         speed = torch.sqrt(vx * vx + vy * vy)
-        shaping = -dist - speed - torch.abs(bodies.angle[:, 0])
+        shaping = -dist - speed - _abs_j(bodies.angle[:, 0])
         return LanderState(
             bodies=bodies,
             terrain=terrain,
@@ -597,7 +605,7 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
         speed = torch.sqrt(vx * vx + vy * vy)
         dist = torch.sqrt(px * px + (py - (PAD_Y + 1.0)) ** 2)
         nlegs = left.to(px.dtype) + right.to(px.dtype)
-        shaping = -dist - speed - torch.abs(ang) + 0.3 * nlegs
+        shaping = -dist - speed - _abs_j(ang) + 0.3 * nlegs
 
         landed = (
             left & right
@@ -615,7 +623,7 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
             shaping
             - aux.prev_shaping
             - cfg.fuel_cost_main * main
-            - cfg.fuel_cost_side * torch.abs(side)
+            - cfg.fuel_cost_side * _abs_j(side)
             + torch.where(landed, cfg.landed_bonus, 0.0)
             + torch.where(crashed, cfg.crash_penalty, 0.0)
         )
@@ -626,7 +634,7 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
             "landed": landed,
             "crashed": crashed,
             "leg_contacts": torch.stack([left, right], dim=-1),  # [B, 2]
-            "fuel": main + torch.abs(side),
+            "fuel": main + _abs_j(side),
         }
         return s, aux, reward, terminated, info
 
@@ -688,8 +696,8 @@ class LanderJudge(Judge):
         b = state
         dist = safe_norm(b.pos[..., 0, :] - self.env._pad_target)
         speed = safe_norm(b.vel[..., 0, :])
-        fuel = _clip_c(control_signal[..., 0], 0.0, 1.0) + torch.abs(control_signal[..., 1])
-        return -(dist + speed + torch.abs(b.angle[..., 0])) - 0.3 * fuel
+        fuel = _clip_c(control_signal[..., 0], 0.0, 1.0) + _abs_j(control_signal[..., 1])
+        return -(dist + speed + _abs_j(b.angle[..., 0])) - 0.3 * fuel
 
     def is_done(self, state, control_signal):
         landed, crashed = self._signals(state)

@@ -178,18 +178,16 @@ class PlaneEnvMixin:
 
         ``policy_fn(params, obs[B, obs_dim]) -> actions [B, act_dim]``.
         Batches larger than ``max_chunk`` (default
-        ``parallel.rollout.ROLLOUT_CHUNK``) run as sequential waves.
+        ``parallel.rollout.ROLLOUT_CHUNK``) run as sequential waves.  On a
+        world ``mesh`` (``parallel/mesh.py``) ``states`` is this rank's
+        shard and the waves are the rank's own (``parallel.rollout.
+        chunked_rollout``); the rollout makes no collective.
         ``traj_select(ts) -> tree`` filters what each step emits.
         ``remat_steps=True`` runs each step under
         ``torch.utils.checkpoint``: under autograd only the per-step carry
         is kept and the step's internals are recomputed in the backward (a
         memory against recompute trade for training; the same values).
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "rollouts over a device mesh are not ported yet (ROADMAP "
-                "Queue 1 item 9)"
-            )
         if n_steps < 1:
             raise ValueError(f"n_steps must be positive, got {n_steps}")
         from parallax_tpu_torch.parallel.rollout import chunked_rollout
@@ -212,4 +210,4 @@ class PlaneEnvMixin:
             stacked = tree_map(lambda *xs: torch.stack(xs), *traj)
             return self._from_planes(ps), stacked
 
-        return chunked_rollout(one_wave, states, states.t.shape[0], max_chunk)
+        return chunked_rollout(one_wave, states, n_steps, states.t.shape[0], max_chunk, mesh)

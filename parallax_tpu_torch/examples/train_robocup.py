@@ -5,24 +5,34 @@ goal and progress reward flow through robot-ball-wall contact dynamics
 over the whole rollout (the contact solve's reverse pass runs as its CUDA
 kernel, or with ``--fused`` the fused step's).  The port of
 ``examples/train_robocup.py`` for one device: the same obs-64-action tanh
-policy, Adam and ``make_train_step`` without checkpoint segments; its mesh
-is not ported (ROADMAP Queue 1 item 9).  The policy's
-initial weights come from numpy seed 0, not from jax.random, so its
-numbers are not the JAX example's.
+policy, Adam and ``make_train_step`` without checkpoint segments, on a
+world mesh (``parallel/mesh.py``: one rank a device, the batch sharded,
+the gradients all-reduced once a step), a rank's batch above ``--chunk``
+in waves.  The policy's initial weights come from numpy seed 0, not from
+jax.random, so its numbers are not the JAX example's.
 
 Run:  python -m parallax_tpu_torch.examples.train_robocup [--steps 30]
-      [--batch 128] [--horizon 60] [--robots 2] [--fused] [--device cpu]
+      [--batch 128] [--horizon 60] [--robots 2] [--chunk N] [--fused]
+      [--device cpu]
+On N GPUs: torchrun --nproc_per_node=N -m parallax_tpu_torch.examples.train_robocup
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
 from parallax_tpu_torch.envs.robocup import RoboCup, RoboCupConfig
+from parallax_tpu_torch.parallel.mesh import (
+    distributed_init,
+    make_world_mesh,
+    replicated,
+    shard_batch,
+)
 from parallax_tpu_torch.parallel.rollout import adam, make_train_step
 
 
@@ -56,27 +66,44 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--fused", action="store_true",
                    help="run the whole physics step as the fused kernel")
+    p.add_argument("--chunk", type=int, default=None,
+                   help="per-device wave size for fleets above one chunk a device "
+                        "(default: parallel.rollout.ROLLOUT_CHUNK)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
+    if "WORLD_SIZE" in os.environ:  # launched by torchrun
+        distributed_init(auto=True, device=args.device)
+    # the mesh first: on CUDA it makes the rank's card the current device
+    mesh = make_world_mesh(args.device)
+    try:
+        return _train(args, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
 
+
+def _train(args, mesh):
+    lead = torch.distributed.get_rank() == 0  # prints for the fleet
     env = RoboCup(RoboCupConfig(n_robots_per_team=args.robots, use_cuda_fused=args.fused),
                   device=args.device)
-    params = init_params(env.observation_size, env.action_size, env.device)
-    train_step = make_train_step(env, policy, adam(params, args.lr), args.horizon)
+    params = replicated(init_params(env.observation_size, env.action_size, env.device), mesh)
+    train_step = make_train_step(env, policy, adam(params, args.lr), args.horizon,
+                                 max_chunk=args.chunk, mesh=mesh)
     keys = np.random.default_rng(1).integers(0, 2**32, (args.batch, 2), dtype=np.uint32)
-    states = env.reset_fn_batch(torch.from_numpy(keys.astype(np.int64)).to(env.device))
+    states = env.reset_fn_batch(shard_batch(torch.from_numpy(keys.astype(np.int64)), mesh))
 
-    print(f"device={env.device} batch={args.batch} horizon={args.horizon} "
-          f"robots={args.robots}v{args.robots} fused={args.fused}")
+    if lead:
+        print(f"device={env.device} ranks={mesh.size(0)} batch={args.batch} "
+              f"horizon={args.horizon} robots={args.robots}v{args.robots} fused={args.fused}")
     for i in range(args.steps):
         t0 = time.perf_counter()
         params, states, metrics = train_step(params, states)
         ret = metrics["mean_return"].item()  # waits for the step
         dt = time.perf_counter() - t0
-        print(
-            f"step {i:3d}  return={ret:8.3f}  "
-            f"loss={metrics['loss'].item():8.3f}  {dt * 1000:6.1f} ms"
-        )
+        if lead:
+            print(
+                f"step {i:3d}  return={ret:8.3f}  "
+                f"loss={metrics['loss'].item():8.3f}  {dt * 1000:6.1f} ms"
+            )
     return params, metrics
 
 

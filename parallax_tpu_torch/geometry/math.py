@@ -52,6 +52,25 @@ def _clip_c(x, lo: float, hi: float):
     return _min_c(_max_c(x, lo), hi)
 
 
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def _abs_j(x):
+    """``jnp.abs``: the value of ``torch.abs``, but at 0 the cotangent passes
+    whole, as in JAX (its JVP is ``select(x >= 0, g, -g)``; torch's abs gives
+    0 there, which a zero action, e.g. from zero policy weights, hits)."""
+    return _Abs.apply(x)
+
+
 def safe_norm(v, dim: int = -1, keepdim: bool = False):
     """L2 norm with a finite gradient at ``v = 0`` (where it returns 0).
 

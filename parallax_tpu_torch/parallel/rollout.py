@@ -1,12 +1,17 @@
-"""Rollouts and the differentiable-physics train step (one device).
+"""Rollouts and the differentiable-physics train step, on one device or a
+fleet of ranks.
 
-The port of ``parallel/rollout.py``'s ``ROLLOUT_CHUNK``, the single-device
-path of ``chunked_rollout``, the per-world ``rollout``, ``batched_rollout``
+The port of ``parallel/rollout.py``: ``ROLLOUT_CHUNK``, ``chunked_rollout``
+with its mesh-aware waves, the per-world ``rollout``, ``batched_rollout``
 (the plane-space fast path, else ``rollout`` on the batch, the port of
 its ``vmap`` fallback) and ``make_train_step``.  ``jax.checkpoint`` becomes
-``torch.utils.checkpoint`` (non-reentrant), ``lax.scan`` a Python loop and
-``optax.adam`` ``torch.optim.Adam`` with optax's defaults.  The mesh path
-(ROADMAP Queue 1 item 9) is not ported yet and raises.
+``torch.utils.checkpoint`` (non-reentrant), ``lax.scan`` and ``lax.map``
+Python loops and ``optax.adam`` ``torch.optim.Adam`` with optax's defaults.
+
+On a ``mesh`` (``parallel/mesh.py``) each rank holds its own block of the
+world batch: the rollout runs it with no collective, and the train step
+makes one explicit all-reduce of the gradients after ``backward()``, where
+XLA inserts the gradient psum in JAX.
 """
 
 from __future__ import annotations
@@ -14,8 +19,10 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from parallax_tpu_torch.parallel.mesh import WORLD_AXIS, axis_group, mesh_axis
 from parallax_tpu_torch.utils.pytree import tree_map
 
 # World-batch size of one rollout wave: larger fleets run as sequential
@@ -24,18 +31,36 @@ from parallax_tpu_torch.utils.pytree import tree_map
 ROLLOUT_CHUNK = 8192
 
 
-def chunked_rollout(rollout_fn: Callable, states, batch: int,
-                    max_chunk: Optional[int] = None):
+def chunked_rollout(rollout_fn: Callable, states, n_steps: int, batch: int,
+                    max_chunk: Optional[int] = None, mesh=None,
+                    axis: str = WORLD_AXIS):
     """Run a batched rollout in sequential ``max_chunk``-sized waves.
 
     ``rollout_fn(states_chunk) -> (final_chunk, traj_chunk)`` with the traj
-    time-major ``[T, Bc, ...]``.  Worlds are independent, so splitting the
-    batch is exact.  A batch that is not a multiple of the chunk runs its
-    full waves plus one remainder wave.  ``max_chunk=0`` disables chunking.
+    time-major ``[n_steps, Bc, ...]``; ``batch`` is the leading dim of
+    ``states``.  Worlds are independent, so splitting the batch is exact.
+    A batch that is not a multiple of the chunk runs its full waves plus
+    one remainder wave.  ``max_chunk=0`` disables chunking.
+
+    ``ROLLOUT_CHUNK`` is a per-device size.  On a ``mesh`` ``states`` is
+    this rank's shard (``parallel/mesh.py:shard_batch``), and a rank batch
+    above one chunk runs as :func:`_mesh_chunked_rollout`'s waves.  The
+    mesh's axis resolves as in JAX: a 1-D mesh under another dim name
+    resolves to it, a mesh of more dims needs ``axis`` named.
     """
     chunk = ROLLOUT_CHUNK if max_chunk is None else max_chunk
+    if mesh is not None:
+        axis = mesh_axis(mesh, axis)
     if not chunk or batch <= chunk:
         return rollout_fn(states)
+    if mesh is not None:
+        return _mesh_chunked_rollout(rollout_fn, states, n_steps, batch, chunk, mesh, axis)
+    return _waves(rollout_fn, states, batch, chunk)
+
+
+def _waves(rollout_fn, states, batch, chunk):
+    """``batch // chunk`` waves of ``chunk`` worlds and one of the rest, one
+    after another; the results joined back in world order."""
     finals, trajs = [], []
     for start in range(0, batch, chunk):
         wave = tree_map(lambda x: x[start:start + chunk], states)
@@ -45,6 +70,24 @@ def chunked_rollout(rollout_fn: Callable, states, batch: int,
     final = tree_map(lambda *xs: torch.cat(xs, dim=0), *finals)
     traj = tree_map(lambda *xs: torch.cat(xs, dim=1), *trajs)
     return final, traj
+
+
+def _mesh_chunked_rollout(rollout_fn, states, n_steps, batch, chunk, mesh, axis):
+    """Per-device waves of a fleet sharded over a 1-D worlds mesh.
+
+    Rank *r* of *N* holds worlds ``[r P, (r+1) P)`` of the global batch
+    (``P`` = ``batch``, the rank's share) and runs them as ``P // chunk``
+    waves of ``chunk`` worlds and one remainder wave of ``P % chunk``, in
+    order, with no collective.  JAX's version relays the global batch out
+    as ``[D, k, chunk]`` so that wave *w* takes ``chunk`` worlds from every
+    device; here each rank's slice is already local, so every rank runs
+    exactly JAX's per-device wave *w* and no relayout is needed.  The
+    results are the rank's worlds in world order: ``final`` ``[P, ...]`` and
+    ``traj`` ``[n_steps, P, ...]``; :func:`~parallax_tpu_torch.parallel.mesh.
+    gather_batch` reads them whole.
+    """
+    mesh_axis(mesh, axis)
+    return _waves(rollout_fn, states, batch, chunk)
 
 
 def _check_segments(n_steps: int, checkpoint_segments: int) -> None:
@@ -142,18 +185,16 @@ def make_loss_fn(env, policy_fn: Callable, n_steps: int,
                  remat_steps: bool = False):
     """The train step's loss: ``loss_fn(params, states) -> (loss, (final,
     mean_return))``, ``loss`` the negated mean discounted return of an
-    ``n_steps`` rollout, differentiable in ``params`` through the physics."""
+    ``n_steps`` rollout, differentiable in ``params`` through the physics.
+    On a 1-D world ``mesh`` it is this rank's: the mean over its worlds."""
     if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh is not ported yet (ROADMAP Queue 1 "
-            "item 9)"
-        )
+        mesh_axis(mesh)
 
     def loss_fn(params, states):
         # stack only the reward plane: the loss reads nothing else
         final, rewards = batched_rollout(
             env, states, policy_fn, params, n_steps, checkpoint_segments,
-            max_chunk=max_chunk, remat_steps=remat_steps,
+            max_chunk=max_chunk, mesh=mesh, remat_steps=remat_steps,
             traj_select=lambda ts: ts.reward,
         )
         disc = discount ** torch.arange(
@@ -163,6 +204,25 @@ def make_loss_fn(env, policy_fn: Callable, n_steps: int,
         return -torch.mean(ret), (final, torch.mean(ret))
 
     return loss_fn
+
+
+def _mean_over_ranks(params: dict, loss, mean_ret, mesh):
+    """One all-reduce of every gradient, the loss and the mean return as a
+    flat bucket, summed and divided by the rank count (gloo has no average),
+    so every rank steps on the same numbers: the gradient of the mean over
+    the fleet's worlds when the ranks hold equal shares.  The bucket's
+    mean over ranks replaces each ``p.grad``; the loss and the mean return
+    come back."""
+    n, _, group = axis_group(mesh)
+    grads = [p.grad for p in params.values()]
+    bucket = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1), mean_ret.reshape(1)])
+    dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
+    bucket = bucket / n
+    start = 0
+    for g in grads:
+        g.copy_(bucket[start:start + g.numel()].view_as(g))
+        start += g.numel()
+    return bucket[start], bucket[start + 1]
 
 
 def make_train_step(env, policy_fn: Callable, optimizer: torch.optim.Optimizer,
@@ -178,7 +238,14 @@ def make_train_step(env, policy_fn: Callable, optimizer: torch.optim.Optimizer,
     and ``mean_return``; the final states are detached, ready for the next
     step.  A loss that does not depend on ``params`` (an env whose reward
     has no gradient path, like billiards' pot counts) gets zero gradients,
-    as from ``jax.value_and_grad``, and the update steps with them."""
+    as from ``jax.value_and_grad``, and the update steps with them.
+
+    On a 1-D world ``mesh`` (``parallel/mesh.py``) ``states`` is this rank's shard and
+    ``params`` the same on every rank (``mesh.replicated``).  After the
+    backward one all-reduce averages the gradients, the loss and the mean
+    return over the ranks, so every rank takes the same optimizer step:
+    one collective a train step, none in the rollout.  The zero-gradient
+    case joins the same all-reduce, so no rank skips it."""
     loss_fn = make_loss_fn(env, policy_fn, n_steps, checkpoint_segments,
                            discount, max_chunk, mesh, remat_steps)
 
@@ -187,11 +254,14 @@ def make_train_step(env, policy_fn: Callable, optimizer: torch.optim.Optimizer,
         loss, (final, mean_ret) = loss_fn(params, states)
         if loss.requires_grad:
             loss.backward()
-        else:
-            for p in params.values():
+        for p in params.values():
+            if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        loss, mean_ret = loss.detach(), mean_ret.detach()
+        if mesh is not None:
+            loss, mean_ret = _mean_over_ranks(params, loss, mean_ret, mesh)
         optimizer.step()
         final = tree_map(torch.Tensor.detach, final)
-        return params, final, {"loss": loss.detach(), "mean_return": mean_ret.detach()}
+        return params, final, {"loss": loss, "mean_return": mean_ret}
 
     return train_step

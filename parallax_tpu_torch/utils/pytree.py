@@ -1,4 +1,12 @@
-"""Minimal tree helpers over NamedTuples, tuples, lists and dicts of tensors."""
+"""Tree helpers over NamedTuples, tuples, lists and dicts of tensors.
+
+The port of ``utils/pytree.py``: ``tree_stack``/``tree_unstack``
+(list-of-structs to struct-of-arrays and back), ``tree_select`` (the
+in-graph auto-reset's select), ``tree_get``/``tree_set`` (indexed gather
+and scatter over every leaf) and ``tree_zeros_like``.  The port's states
+are NamedTuples, so the Flax struct idioms ``static_field`` and ``frozen``
+have no counterpart here.
+"""
 
 from __future__ import annotations
 
@@ -44,3 +52,37 @@ def tree_select(pred, on_true, on_false):
         return torch.where(p, t, f)
 
     return tree_map(sel, on_true, on_false)
+
+
+def tree_stack(trees, axis: int = 0):
+    """Stack a sequence of trees of one structure into one tree of stacked
+    leaves (struct-of-arrays)."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=axis), *trees)
+
+
+def tree_unstack(tree, axis: int = 0) -> list:
+    """Inverse of :func:`tree_stack`: one tree for each index along
+    ``axis``."""
+    n = tree_leaves(tree)[0].shape[axis]
+    return [tree_map(lambda x: x.select(axis, i), tree) for i in range(n)]
+
+
+def tree_get(tree, idx):
+    """Gather ``leaf[idx]`` for every leaf."""
+    return tree_map(lambda x: x[idx], tree)
+
+
+def tree_set(tree, idx, value):
+    """``leaf[idx] = value_leaf`` for every leaf, on copies: the input tree
+    is left as it was (JAX's ``x.at[idx].set(v)``)."""
+
+    def put(x, v):
+        y = x.clone()
+        y[idx] = v
+        return y
+
+    return tree_map(put, tree, value)
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)

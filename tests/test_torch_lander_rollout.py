@@ -175,15 +175,25 @@ def test_state_numpy_round_trip(envs):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_mesh_and_remat_are_not_ported(envs):
-    """The mesh path is still not ported; ``remat_steps`` now is (the train
-    path), and on a forward rollout it changes no value."""
+def test_mesh_takes_a_world_mesh_and_remat_keeps_values(envs):
+    """``mesh=`` takes a world mesh (a one-rank gloo mesh here: the same
+    rollout as without it) and refuses anything else; ``remat_steps``
+    changes no value of a forward rollout."""
+    from parallax_tpu_torch.parallel.mesh import make_world_mesh
+
     env, _ = envs
     st = start_state(env, "reset")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        env.rollout_batch(st, torch_policy, 1, None, mesh=object())
     W, b = _policy_weights("tanh_linear")
     params = (torch.from_numpy(W), torch.from_numpy(b))
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        env.rollout_batch(st, torch_policy, 1, None, mesh=object())
+    mesh = make_world_mesh("cpu")
+    try:
+        _, on_mesh = env.rollout_batch(st, torch_policy, 3, params, max_chunk=50, mesh=mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    _, alone = env.rollout_batch(st, torch_policy, 3, params, max_chunk=50)
+    assert torch.equal(on_mesh.obs, alone.obs) and torch.equal(on_mesh.reward, alone.reward)
     _, remat = env.rollout_batch(st, torch_policy, 3, params, remat_steps=True)
     _, plain = env.rollout_batch(st, torch_policy, 3, params)
     assert torch.equal(remat.obs, plain.obs) and torch.equal(remat.reward, plain.reward)

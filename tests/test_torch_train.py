@@ -316,8 +316,17 @@ def test_segments_must_divide_the_horizon(env, scenario):
     st = tree_map(lambda x: x[:2], scenario)
     with pytest.raises(ValueError, match="must divide"):
         rollout.batched_rollout(env, st, torch_policy, torch_params(), 12, 5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         rollout.make_train_step(env, torch_policy, None, 12, mesh=object())
+    # a world mesh is taken (a one-rank gloo mesh here); its step is
+    # tests/test_torch_mesh.py's and tests/test_torch_fleet*.py's
+    from parallax_tpu_torch.parallel.mesh import make_world_mesh
+
+    mesh = make_world_mesh("cpu")
+    try:
+        assert callable(rollout.make_train_step(env, torch_policy, None, 12, mesh=mesh))
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_trainer_entry_point_runs_on_cpu(capsys):
