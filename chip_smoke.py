@@ -50,6 +50,15 @@ the card agrees with the same run on the CPU:
   card, each with half of the same 8,192 worlds, against the one-process
   train step; ``parallel/dryrun.py:dryrun_multichip`` on the mesh.
 
+* the options (phase 9): ``LanderConfig(terrain_candidates=True)`` at
+  B=8192, split and fused, step by step against the full-table lander,
+  its rollouts timed in turns with the full table's, the four kernels on
+  its contact scenario against their plain versions and its train steps
+  card against CPU; ``BilliardsConfig(rolled=True)`` (``engine/rolled.py``,
+  no kernel) with 7 and 47 object balls beside the lane engine and card
+  against CPU; the lander's split train step with and without
+  ``PARALLAX_REMAT_COLLIDE`` (set in a process of its own).
+
 All four kernels run one warp per world, several worlds a block
 (``contact_solver.WORLDS_PER_BLOCK``); phase 3 holds each to the bit
 across two launches and across plans of 2, 4 and 8 worlds a block, times
@@ -2171,6 +2180,27 @@ def crate_train(gpu):
     return res
 
 
+def train_once(env, horizon, segments, states, **step_kw):
+    """One timed train step (the 9-32-2 MLP, Adam at 3e-3) from fresh
+    weights, ``step_kw`` to ``make_train_step``: ``(seconds, loss, grads,
+    kernel counts, peak GiB)``; the counts and the peak start from 0 just
+    before the step."""
+    from parallax_tpu_torch.parallel import rollout
+
+    params = mlp_params(states.t.device)
+    step = rollout.make_train_step(env, mlp, rollout.adam(params, 3e-3), horizon,
+                                   checkpoint_segments=segments, **step_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    params, _, m = step(params, states)
+    loss = m["loss"].item()  # synchronizes
+    sec = time.perf_counter() - t0
+    grads = [p.grad.detach().clone() for p in params.values()]
+    return sec, loss, grads, kernel_counts(), torch.cuda.max_memory_allocated() / 2**30
+
+
 FLEET_CHUNK = 4096  # phase 8: two waves of the B=8192 fleet
 FLEET_FUSED_H = 12  # phase 8: the fused train step's horizon
 
@@ -2198,25 +2228,15 @@ def zero_counts():
 
 
 def fleet_train(env, mesh, horizon, segments, states):
-    """One train step (the 9-32-2 MLP, Adam at 3e-3) on ``mesh`` or without
-    one (None), from ``states``: ``(seconds, loss, grads, kernel counts,
-    collectives)``; the counts start from 0 just before the step."""
-    from parallax_tpu_torch.parallel import rollout
+    """One train step on ``mesh`` or without one (None), in waves of
+    FLEET_CHUNK (:func:`train_once`): ``(seconds, loss, grads, kernel
+    counts, collectives)``."""
     from torch_fleet_worker import counting_collectives
 
-    params = mlp_params(states.t.device)
-    step = rollout.make_train_step(env, mlp, rollout.adam(params, 3e-3), horizon,
-                                   checkpoint_segments=segments, max_chunk=FLEET_CHUNK,
-                                   mesh=mesh)
-    torch.cuda.synchronize()
-    zero_counts()
     with counting_collectives() as coll:
-        t0 = time.perf_counter()
-        params, _, m = step(params, states)
-        loss = m["loss"].item()  # synchronizes
-        sec = time.perf_counter() - t0
-    grads = [p.grad.detach().clone() for p in params.values()]
-    return sec, loss, grads, kernel_counts(), dict(coll)
+        sec, loss, grads, counts, _ = train_once(env, horizon, segments, states,
+                                                 max_chunk=FLEET_CHUNK, mesh=mesh)
+    return sec, loss, grads, counts, dict(coll)
 
 
 def fleet_rank(rank, port, out_dir):
@@ -2377,6 +2397,340 @@ def fleet_phase(gpu):
     return {"launches": [int(x) for x in fleet], "train": train, "rollout_s": roll_s,
             "rollout_plain_s": roll_plain_s, "all_reduce_ms": all_reduce_ms,
             "two_ranks_s": sec_2}
+
+
+OPT_STEPS = 60  # phase 9 (i): candidate lander step by step against the full table
+POS_ATOL, VEL_ATOL = 1e-5, 1e-4  # the JAX package's candidate test's bars
+ROLLED_ATOL = 2e-5  # rolled against the lane engine: tests/test_rolled.py's bar
+REMAT_RTOL = 1e-6  # the remat leg's loss and gradients against the plain one
+# rolled billiards48 card against CPU: some 19,000 small ops a step on
+# either side, so its depth is cut to keep the script's time
+ROLLED48_CPU_STEPS = 20
+
+
+def remat_leg(out):
+    """Phase 9 (iii) in a process of its own, started with
+    ``PARALLAX_REMAT_COLLIDE=1``: the lander's split train step at B
+    (HORIZON steps, SEGMENTS segments) after a short warm-up (the script's
+    own leg runs warm, after phase 7), written to ``out``."""
+    from parallax_tpu_torch.engine import batched
+    from parallax_tpu_torch.envs.lunar_lander import LunarLander
+    from parallax_tpu_torch.ops import _build
+
+    check(batched._REMAT_COLLIDE, "remat leg: PARALLAX_REMAT_COLLIDE is not set")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    env = LunarLander()
+    states = env.reset_fn_batch(keys_for(B, 7, "cuda"))
+    train_once(env, SEGMENTS, SEGMENTS, states)  # warm-up: one step a segment
+    sec, loss, grads, counts, peak = train_once(env, HORIZON, SEGMENTS, states)
+    np.savez(out, sec=sec, loss=loss, counts=np.array(counts), peak=peak,
+             **{f"g{i}": g.cpu().numpy() for i, g in enumerate(grads)})
+
+
+def options_phase(gpu):
+    """Phase 9: three options of the JAX package, each against its reference.
+
+    (i) ``LanderConfig(terrain_candidates=True)`` at B: the candidate world
+    (28 lanes where the full table has 48; 11 gathered terrain windows)
+    step by step against the full-table lander from the scattered fleet of
+    the JAX package's test, split and fused (positions within POS_ATOL,
+    velocities within VEL_ATOL, leg flags equal); its 100-step rollouts
+    timed in turns with the full table's, with device kernels a step; the
+    four kernels on the candidate world's contact scenario against their
+    plain versions at phase 3's bars, timed, with their bounds; its split
+    and fused train steps card against CPU at SMALL_B (h=SMALL_H).
+    (ii) ``BilliardsConfig(rolled=True)`` (``engine/rolled.py``, plain
+    torch) with 7 and 47 object balls: 50-step rollouts at B beside the
+    lane engine's, with device kernels a step and peak memory; one step
+    against the lane engine from the scattered table (ROLLED_ATOL); card
+    against CPU at SMALL_B over SMALL_STEPS steps (billiards48:
+    ROLLED48_CPU_STEPS), at phase 4's bars.
+    (iii) ``PARALLAX_REMAT_COLLIDE``: the lander's split train step at B
+    (HORIZON, SEGMENTS) here and in a process started with the switch
+    set: loss and gradients within REMAT_RTOL, peak memory and time of
+    each.  Returns the kernels' entries for the candidate world and the
+    phase's readings."""
+    from parallax_tpu_torch.engine import rolled
+    from parallax_tpu_torch.engine.batched import _to_soa, collide_batched, physics_core
+    from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
+    from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from parallax_tpu_torch.parallel import rollout
+    from parallax_tpu_torch.utils.pytree import tree_map
+    from torch_scenarios import billiards_scatter, candidate_contact_case, lander_scatter_state
+
+    dev = torch.device("cuda")
+    out = {"kernels": {}, "launches": np.zeros(4, np.int64)}
+    cand = LanderConfig(terrain_candidates=True)
+    cand_f = LanderConfig(terrain_candidates=True, broadphase=False, use_cuda_fused=True)
+    envs = {
+        "split": (LunarLander(), LunarLander(cand)),
+        "fused": (LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True)),
+                  LunarLander(cand_f)),
+    }
+    wc, wf = envs["split"][1]._bm_world, envs["fused"][1]._bm_world
+    C, C_full = wc.table.n_contacts, envs["split"][0].world.table.n_contacts
+    check(C == 28 and C_full == 48, f"candidate world C={C}, full table C={C_full}")
+
+    # (i) step by step against the full table, from the scattered fleet
+    acts = torch.zeros((B, 2), device=dev)
+    for label, (full, e) in envs.items():
+        st = lander_scatter_state(e, B)
+        pos_err = vel_err = 0.0
+        legs = 0
+        for _ in range(OPT_STEPS):
+            sc, tc = e.step_batch(st, acts)
+            sf, tf = full.step_batch(st, acts)
+            pos_err = max(pos_err, (sc.bodies.pos - sf.bodies.pos).abs().max().item())
+            vel_err = max(vel_err, (sc.bodies.vel - sf.bodies.vel).abs().max().item())
+            check(torch.equal(sc.leg_contacts, sf.leg_contacts)
+                  and torch.equal(tc.terminated, tf.terminated),
+                  f"candidate {label}: leg or termination flags differ from the full table")
+            legs += int(sc.leg_contacts.sum())
+            st = sc
+        print(f"[options] candidate lander {label}, B={B}, {OPT_STEPS} steps from the scattered "
+              f"fleet, each from the same state: max |pos diff| {pos_err:.3e}, max |vel diff| "
+              f"{vel_err:.3e} against the full table, flags equal ({legs} leg-contact flags)")
+        check(np.isfinite(pos_err) and pos_err <= POS_ATOL and vel_err <= VEL_ATOL,
+              f"candidate {label}: pos {pos_err} / vel {vel_err} beyond {POS_ATOL} / {VEL_ATOL}")
+        check(legs > 0, f"candidate {label}: no leg touched the ground")
+
+    t_phase = time.perf_counter()
+
+    def lap(label):
+        print(f"[clock] phase 9: {label} at {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    lap("the 100-step rollouts start")
+    # (i) 100-step rollouts in turns: full, candidates, candidates, full
+    params = policy_params(dev)
+    start = lowered(envs["split"][0].reset_fn_batch(keys_for(B, 5, dev)), dev)
+    rolls = {}
+    for label, (full, e) in envs.items():
+        want = (STEPS, 0, 0, 0) if label == "split" else (0, 0, STEPS, 0)
+        secs = {"full": [], "candidates": []}
+        for which in ("full", "candidates", "candidates", "full"):
+            env_ = full if which == "full" else e
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            _, tr = env_.rollout_batch(start, policy, STEPS, params)
+            torch.cuda.synchronize()
+            secs[which].append(time.perf_counter() - t0)
+            check(kernel_counts() == want, f"{label} {which} rollout: launches {kernel_counts()}, "
+                  f"want {want}")
+            check(torch.isfinite(tr.obs).all().item(), f"{label} {which} rollout: non-finite obs")
+            if which == "candidates":
+                out["launches"] += kernel_counts()
+        ps = e._to_planes(start)
+        a0 = policy(params, e.plane_obs(ps.s, ps.aux))
+        kern = {w: device_kernels(lambda: env_._step_planes(env_._to_planes(start), a0))
+                for w, env_ in (("full", full), ("candidates", e))}
+        rolls[label] = {w: {"s": min(v), "env_steps_per_s": B * STEPS / min(v),
+                            "device_kernels_a_step": kern[w][0], "device_ms_a_step": kern[w][1]}
+                        for w, v in secs.items()}
+        print(f"[options] {label} rollout B={B} x {STEPS} steps, in turns: full table (C={C_full}) "
+              f"{[round(x, 3) for x in secs['full']]} s, candidates (C={C}) "
+              f"{[round(x, 3) for x in secs['candidates']]} s; a step's device kernels full "
+              f"{kern['full'][0]} ({kern['full'][1]:.3f} ms), candidates {kern['candidates'][0]} "
+              f"({kern['candidates'][1]:.3f} ms) on {gpu}")
+
+    lap("the candidate world's kernels start")
+    # (i) the four kernels on the candidate world's contact scenario
+    e_s, e_f = envs["split"][1], envs["fused"][1]
+    cfg = wc.config
+    s, ov = candidate_contact_case(e_s, B, dev)
+    check(len(ov) == 11, f"candidate override has {len(ov)} parts")
+    con = collide_batched(wc, s, ov)
+    n_active = int(con.active.sum())
+    check(n_active > 100, f"candidate scenario has {n_active} active lanes")
+    args = (cfg.solver_iterations, cfg.position_iterations, cfg.dt, cfg.contact)
+    cot = type(s)(*(torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (wc.n_bodies, B)).astype(np.float32)).to(dev) for _ in range(6)))
+    got = contact_solver.solve_contacts(wc, s, con, *args)
+    want = contact_solver.solve_contacts_plain(wc, s, con, *args)
+    gb = contact_solver.solve_contacts_bwd(wc, s, con, cot, *args)
+    wb = contact_solver.solve_contacts_bwd_plain(wc, s, con, cot, *args)
+    fs, fc = fused_step.physics_core_fused(wf, s, ov)
+    ps_, pc = fused_step.fused_step_plain(wf, s, ov)
+    fgb = fused_step.fused_step_bwd(wf, s, ov, cot)
+    fwb = fused_step.fused_step_bwd_plain(wf, s, ov, cot)
+    torch.cuda.synchronize()
+    f_active = int(pc.active.sum())
+    check(torch.equal(fc.active, pc.active), "candidate fused kernel: active flags differ")
+    errs = {
+        "contact_solve_fwd": planes_err("candidate solve kernel vs plain", got, want),
+        "contact_solve_bwd": hold_vjp("candidate solve reverse pass vs plain VJP",
+                                      (*gb[0], *gb[1:]), (*wb[0], *wb[1:]))[0],
+        "fused_step_fwd": planes_err("candidate fused kernel vs plain", fs, ps_),
+        "fused_step_bwd": hold_vjp("candidate fused reverse pass vs plain VJP",
+                                   (*fgb[0], *fgb[1:]), (*fwb[0], *fwb[1:]))[0],
+    }
+    check(all(x.abs().max().item() > 0 for x in fgb[0]), "candidate fused reverse pass: dead plane")
+    timed = {
+        "contact_solve_fwd": (lambda: contact_solver.solve_contacts(wc, s, con, *args),
+                              lambda: contact_solver.solve_contacts_plain(wc, s, con, *args), 20),
+        "contact_solve_bwd": (
+            lambda: contact_solver.solve_contacts_bwd(wc, s, con, cot, *args),
+            lambda: contact_solver.solve_contacts_bwd_plain(wc, s, con, cot, *args), 10),
+        "fused_step_fwd": (lambda: fused_step.physics_core_fused(wf, s, ov),
+                           lambda: fused_step.fused_step_plain(wf, s, ov), 20),
+        "fused_step_bwd": (lambda: fused_step.fused_step_bwd(wf, s, ov, cot),
+                           lambda: fused_step.fused_step_bwd_plain(wf, s, ov, cot), 5),
+    }
+    counts = (n_active, B, C, wc.n_bodies, wc.joints.n_joints, cfg.solver_iterations,
+              cfg.position_iterations)
+    touched = touched_pairs(wf, pc.active)
+    bounds = {
+        "contact_solve_fwd": solver_bound_ms(*counts, bwd=False),
+        "contact_solve_bwd": solver_bound_ms(*counts, bwd=True),
+        "fused_step_fwd": fused_bound_ms(wf, sorted(ov), f_active, B)[:2],
+        "fused_step_bwd": fused_bwd_bound_ms(wf, sorted(ov), f_active, touched, B)[:2],
+    }
+    for k, (fn, plain, reps) in timed.items():
+        ms, plain_ms, t = turns(fn, plain, reps)
+        out["kernels"][k] = {"max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+        print(f"[kernel] {k} on the candidate world (C={C}, {len(ov)} override parts) at B={B}: "
+              f"{n_active if k.startswith('contact') else f_active} active lanes, max |diff| "
+              f"{errs[k]:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (turns "
+              f"{[round(x, 4) for x in t]}), bound {bounds[k][0]:.5f} ms ({bounds[k][1]}) on {gpu}")
+
+    lap("the candidate train steps start")
+    # (i) the candidate train steps, card against CPU, from the contact state
+    st = lowered(e_s.reset_fn_batch(keys_for(SMALL_B, 6, dev)), dev)
+    st, _ = e_s.rollout_batch(st, zero_policy, 40)
+    cpu_st = tree_map(lambda x: x.cpu(), st)
+    p = mlp_params("cpu")
+    loss_c, _ = rollout.make_loss_fn(LunarLander(cand, device="cpu"), mlp, SMALL_H, 2)(p, cpu_st)
+    grads_c = torch.autograd.grad(loss_c, list(p.values()))
+    train = {}
+    for label, e, want in (("split", e_s, (2 * SMALL_H, SMALL_H, 0, 0)),
+                           ("fused", e_f, (0, 0, 2 * SMALL_H, SMALL_H))):
+        p = mlp_params(dev)
+        zero_counts()
+        loss, _ = rollout.make_loss_fn(e, mlp, SMALL_H, 2)(p, tree_map(lambda x: x.to(dev), cpu_st))
+        grads = torch.autograd.grad(loss, list(p.values()))
+        check(kernel_counts() == want, f"candidate {label} train: launches {kernel_counts()}, "
+              f"want {want}")
+        out["launches"] += kernel_counts()
+        loss_rel = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+        grad_rel = max((a.cpu() - b).norm().item() / b.norm().item()
+                       for a, b in zip(grads, grads_c))
+        train[label] = {"loss_rel": loss_rel, "grad_rel": grad_rel}
+        print(f"[check] candidate {label} train loss+grads B={SMALL_B} h={SMALL_H}, card vs CPU: "
+              f"loss {loss.item():.7f} vs {loss_c.item():.7f} (rel {loss_rel:.2e}), grads max rel "
+              f"diff in norm {grad_rel:.2e}; launches {kernel_counts()}")
+        check(loss_rel <= LOSS_RTOL and grad_rel <= GRAD_RTOL,
+              f"candidate {label} train: card vs CPU loss {loss_rel} / grads {grad_rel}")
+        check(all(g.norm().item() > 0 for g in grads), f"candidate {label} train: a zero gradient")
+    out["candidates"] = {"C": C, "C_full": C_full, "override_parts": len(ov), "rollouts": rolls,
+                         "train": train}
+
+    lap("rolled billiards starts")
+    # (ii) rolled billiards
+    rolled_out = {}
+    for n_obj in (7, 47):
+        lane, rl = Billiards(BilliardsConfig(n_object=n_obj)), Billiards(
+            BilliardsConfig(n_object=n_obj, rolled=True))
+        s0 = billiards_scatter(rl, B, n_obj)
+        want_s, _ = physics_core(lane.world, s0)
+        got_s, _ = rolled.physics_rolled(rl._rolled_world, s0)
+        torch.cuda.synchronize()
+        err = planes_err(f"rolled billiards{n_obj + 1} vs lane engine", got_s, want_s,
+                         bar=ROLLED_ATOL)
+        row = {"one_step_max_abs_err": err}
+        cp = circle_params(rl.observation_size, dev)
+        st = billiards_start(rl, keys_for(B, 8, dev))
+        for label, e in (("lane", lane), ("rolled", rl)):
+            e.rollout_batch(st, circle_policy, 2, cp)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            _, tr = e.rollout_batch(st, circle_policy, CIRCLE_STEPS, cp)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            counts = kernel_counts()
+            want = (CIRCLE_STEPS, 0, 0, 0) if label == "lane" else (0, 0, 0, 0)
+            check(counts == want, f"billiards{n_obj + 1} {label}: launches {counts}, want {want}")
+            check(torch.isfinite(tr.obs).all().item(), f"billiards{n_obj + 1} {label}: non-finite")
+            ps = e._to_planes(st)
+            a0 = circle_policy(cp, e.plane_obs(ps.s, ps.aux))
+            kern = device_kernels(lambda: e._step_planes(e._to_planes(st), a0))
+            row[label] = {"env_steps_per_s": B * CIRCLE_STEPS / sec, "s": sec, "peak_gib": peak,
+                          "device_kernels_a_step": kern[0], "device_ms_a_step": kern[1]}
+            del tr, ps
+        small, cpu_steps = {}, SMALL_STEPS if n_obj == 7 else ROLLED48_CPU_STEPS
+        for d in ("cuda", "cpu"):
+            e = Billiards(BilliardsConfig(n_object=n_obj, rolled=True), device=d)
+            _, small[d] = e.rollout_batch(billiards_start(e, keys_for(SMALL_B, 4, d)),
+                                          circle_policy, cpu_steps,
+                                          circle_params(e.observation_size, d))
+        g, c = small["cuda"], small["cpu"]
+        obs_err = (g.obs.cpu() - c.obs).abs().max().item()
+        rew_err = (g.reward.cpu() - c.reward).abs().max().item()
+        done_share = (g.done.cpu() == c.done).all(0).double().mean().item()
+        row["card_vs_cpu"] = {"steps": cpu_steps, "obs": obs_err, "reward": rew_err,
+                              "done_share": done_share}
+        rolled_out[f"billiards{n_obj + 1}"] = row
+        print(f"[options] rolled billiards{n_obj + 1} ({rl.n_balls} balls, "
+              f"{len(rl._rolled_world.offsets)} offsets + 4 walls): one step vs the lane engine "
+              f"(C={lane.world.table.n_contacts}) max |diff| {err:.3e}; B={B} x {CIRCLE_STEPS} "
+              f"steps lane {row['lane']['env_steps_per_s']:.1f} env-steps/s "
+              f"({row['lane']['device_kernels_a_step']} device kernels a step, peak "
+              f"{row['lane']['peak_gib']:.2f} GiB), rolled {row['rolled']['env_steps_per_s']:.1f} "
+              f"({row['rolled']['device_kernels_a_step']} device kernels a step, "
+              f"{row['rolled']['device_ms_a_step']:.3f} ms device time, peak "
+              f"{row['rolled']['peak_gib']:.2f} GiB); card vs CPU B={SMALL_B} x {cpu_steps}: "
+              f"obs {obs_err:.3e}, reward {rew_err:.3e}, equal done sequences {done_share:.4f} "
+              f"on {gpu}")
+        check(obs_err <= CPU_ATOL and rew_err <= CPU_ATOL and done_share >= CPU_DONE_SHARE,
+              f"rolled billiards{n_obj + 1}: card vs CPU obs {obs_err}, reward {rew_err}, "
+              f"done share {done_share}")
+        del lane, rl
+    out["rolled"] = rolled_out
+
+    lap("the remat switch starts")
+    # (iii) the remat switch: the split train step here and in a process
+    # started with PARALLAX_REMAT_COLLIDE=1
+    from parallax_tpu_torch.engine import batched
+
+    check(not batched._REMAT_COLLIDE, "the script must run without PARALLAX_REMAT_COLLIDE")
+    env = envs["split"][0]
+    states = env.reset_fn_batch(keys_for(B, 7, dev))
+    sec, loss, grads, counts, peak = train_once(env, HORIZON, SEGMENTS, states)
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "build", "remat_leg.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+         f"chip_smoke.remat_leg({path!r})"],
+        cwd=here, env={**os.environ, "PARALLAX_REMAT_COLLIDE": "1"}, timeout=600,
+    )
+    leg_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"remat leg exited {res.returncode}")
+    leg = dict(np.load(path))
+    loss_rel = abs(float(leg["loss"]) - loss) / abs(loss)
+    grad_rel = max(float(np.linalg.norm(leg[f"g{i}"] - g.cpu().numpy())
+                         / np.linalg.norm(g.cpu().numpy())) for i, g in enumerate(grads))
+    check(tuple(leg["counts"]) == counts == (2 * HORIZON, HORIZON, 0, 0),
+          f"remat: launches {tuple(leg['counts'])} and {counts}")
+    out["remat_launches"] = np.asarray(counts) + leg["counts"]
+    out["remat"] = {"s": sec, "peak_gib": peak, "remat_s": float(leg["sec"]),
+                    "remat_peak_gib": float(leg["peak"]), "loss_rel": loss_rel,
+                    "grad_rel": grad_rel, "leg_process_s": leg_s}
+    print(f"[options] lander split train step B={B} h={HORIZON} segments={SEGMENTS}: without "
+          f"the remat switch {sec:.3f} s, peak {peak:.2f} GiB; with PARALLAX_REMAT_COLLIDE=1 "
+          f"{float(leg['sec']):.3f} s, peak {float(leg['peak']):.2f} GiB (its process "
+          f"{leg_s:.1f} s); loss rel diff {loss_rel:.2e}, gradients max rel diff in norm "
+          f"{grad_rel:.2e}; launches {counts} in each on {gpu}")
+    check(loss_rel <= REMAT_RTOL and grad_rel <= REMAT_RTOL,
+          f"remat: loss {loss_rel} / gradients {grad_rel} beyond {REMAT_RTOL}")
+    return out
 
 
 def main():
@@ -2833,6 +3187,15 @@ def main():
     lap("phase 8 (the fleet) starts")
     fleet = fleet_phase(gpu)
     print("[fleet] " + json.dumps(fleet))
+    lap("phase 9 (the options) starts")
+    opts = options_phase(gpu)
+    print("[options] " + json.dumps({k: opts[k] for k in ("candidates", "rolled", "remat")}))
+    # each kernel on the candidate lander's path (its rollouts and train
+    # steps), and rows 1 and 2 on the remat switch's two train steps
+    cand = {k: {"launches": int(n), **opts["kernels"][k]}
+            for k, n in zip(("contact_solve_fwd", "contact_solve_bwd", "fused_step_fwd",
+                             "fused_step_bwd"), opts["launches"])}
+    remat = [int(x) for x in opts["remat_launches"]]
     lap("done")
     print(json.dumps({"kernels": [
         {
@@ -2843,8 +3206,10 @@ def main():
             # the lander's rollout, the circle worlds' split rollouts and
             # the crate pile's split step_batched
             "launches": launches + sum(circle[f"{k} split"][1][0] for k in solves)
-            + rc_paths["robocup split"][1][0] + crate_rates["split"][1][0] + fleet["launches"][0],
-            "max_abs_err": max(max_err, large["billiards61"]["solve"]["max_abs_err"]),
+            + rc_paths["robocup split"][1][0] + crate_rates["split"][1][0] + fleet["launches"][0]
+            + cand["contact_solve_fwd"]["launches"] + remat[0],
+            "max_abs_err": max(max_err, large["billiards61"]["solve"]["max_abs_err"],
+                               cand["contact_solve_fwd"]["max_abs_err"]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": fwd_bound,
@@ -2856,6 +3221,8 @@ def main():
             "mixed": crates["mixed"]["solve"],
             "billiards61": large["billiards61"]["solve"],
             "fleet": {"launches": fleet["launches"][0]},
+            "candidates": cand["contact_solve_fwd"],
+            "remat": {"launches": remat[0]},
             **plans["contact_solve_fwd"],
         },
         {
@@ -2866,10 +3233,12 @@ def main():
             # the lander's and RoboCup's split train steps and the crate
             # pile's split gradient
             "launches": train["split"][1][1] + rc_train["robocup split"][1][1]
-            + crate_grad["split"][1][1] + fleet["launches"][1],
+            + crate_grad["split"][1][1] + fleet["launches"][1]
+            + cand["contact_solve_bwd"]["launches"] + remat[1],
             "max_abs_err": max(bwd_err, rc["solve_bwd"]["max_abs_err"],
                                crates["crates"]["solve_bwd"]["max_abs_err"],
-                               large["billiards61"]["solve_bwd"]["max_abs_err"]),
+                               large["billiards61"]["solve_bwd"]["max_abs_err"],
+                               cand["contact_solve_bwd"]["max_abs_err"]),
             "ms": bwd_ms,
             "plain_ms": bwd_plain_ms,
             "bound_ms": bwd_bound,
@@ -2881,6 +3250,8 @@ def main():
             "mixed": crates["mixed"]["solve_bwd"],
             "billiards61": large["billiards61"]["solve_bwd"],
             "fleet": {"launches": fleet["launches"][1]},
+            "candidates": cand["contact_solve_bwd"],
+            "remat": {"launches": remat[1]},
             **plans["contact_solve_bwd"],
         },
         {
@@ -2893,8 +3264,10 @@ def main():
             # RoboCup's (cc, cb, area_cb) and the crate pile's (bb, cb, cc)
             "launches": fused_launches + circle["billiards8 fused"][1][1]
             + rc_paths["robocup fused"][1][1] + crate_rates["fused"][1][1]
-            + circle["billiards48 fused"][1][1] + fleet["launches"][2],
-            "max_abs_err": max([fused_err, rc["fwd"]["max_abs_err"], crates["fwd"]["max_abs_err"]]
+            + circle["billiards48 fused"][1][1] + fleet["launches"][2]
+            + cand["fused_step_fwd"]["launches"],
+            "max_abs_err": max([fused_err, rc["fwd"]["max_abs_err"], crates["fwd"]["max_abs_err"],
+                                cand["fused_step_fwd"]["max_abs_err"]]
                                + [v["fwd"]["max_abs_err"] for v in large.values()]),
             "ms": fused_ms,
             "plain_ms": fused_plain_ms,
@@ -2917,6 +3290,7 @@ def main():
             "billiards61": large["billiards61"]["fwd"],
             "override": large["override"]["fwd"],
             "fleet": {"launches": fleet["launches"][2]},
+            "candidates": cand["fused_step_fwd"],
             **plans["fused_step_fwd"],
         },
         {
@@ -2929,9 +3303,11 @@ def main():
             # cue objective and the crate pile's fused gradient
             "launches": train["fused"][1][3] + rc_train["robocup fused"][1][3]
             + rc_train["billiards8 fused cue objective"][1][3] + crate_grad["fused"][1][3]
-            + large["billiards48"]["bwd"]["launches"] + fleet["launches"][3],
+            + large["billiards48"]["bwd"]["launches"] + fleet["launches"][3]
+            + cand["fused_step_bwd"]["launches"],
             "max_abs_err": max([fbwd_err, rc["bwd"]["max_abs_err"],
-                                rc["bwd_billiards8"]["max_abs_err"], crates["bwd"]["max_abs_err"]]
+                                rc["bwd_billiards8"]["max_abs_err"], crates["bwd"]["max_abs_err"],
+                                cand["fused_step_bwd"]["max_abs_err"]]
                                + [v["bwd"]["max_abs_err"] for v in large.values()]),
             "ms": fbwd_ms,
             "plain_ms": fbwd_plain_ms,
@@ -2945,6 +3321,7 @@ def main():
             "billiards61": large["billiards61"]["bwd"],
             "override": large["override"]["bwd"],
             "fleet": {"launches": fleet["launches"][3]},
+            "candidates": cand["fused_step_bwd"],
             **plans["fused_step_bwd"],
         },
     ]}))

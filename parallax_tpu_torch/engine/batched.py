@@ -30,10 +30,12 @@ plane-space rollouts loop over :func:`physics_core`.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from parallax_tpu_torch.dynamics.bodies import BodyState
 from parallax_tpu_torch.dynamics.impulses import ContactSolverConfig
@@ -42,6 +44,11 @@ from parallax_tpu_torch.geometry.math import _clip_c, _const, _max_c, _min_c  # 
 from parallax_tpu_torch.geometry.shapes import CIRCLE, POLYGON, edge_mask_for
 
 INF = float("inf")
+
+# Recompute the split step's narrow phase in the backward pass instead of
+# keeping its intermediates (the JAX package's switch of the same name).
+# Read at import: set it before the port is imported.
+_REMAT_COLLIDE = os.environ.get("PARALLAX_REMAT_COLLIDE", "0") != "0"
 
 
 class ContactsBM(NamedTuple):
@@ -1100,7 +1107,12 @@ def physics_core(
         )
 
     s, dt = integrate_bm(world, s, dt, accel)
-    con = collide_batched(world, s, terrain_override)
+    if _REMAT_COLLIDE:
+        con = torch.utils.checkpoint.checkpoint(
+            collide_batched, world, s, terrain_override, use_reentrant=False
+        )
+    else:
+        con = collide_batched(world, s, terrain_override)
     if cfg.use_cuda_solver and world.table.n_contacts > 0:
         from parallax_tpu_torch.ops.contact_solver import solve_contacts
 

@@ -17,10 +17,13 @@ runs the whole step as the fused kernel (``ops/fused_step.py``, the twin of
 runs any ``n_object`` (billiards48, 52 parts and C=1320 lanes, keeps the
 forward's lane fields in scratch, ``contact_solver.fields_plan``).
 
+``BilliardsConfig(rolled=True)`` runs the batched path's physics as
+``engine/rolled.py:physics_rolled`` instead: offset-rolled all-pairs
+contacts and their solve on ``[n_balls, B]`` planes, with no lane table
+and no kernel (plain torch, as the JAX package's is XLA).
+
 The per-world ``reset_fn``/``step_fn`` (states with any leading batch
-axes, ``envs/base.py``) step through ``World.step``.  Not ported:
-``BilliardsConfig.rolled`` (``engine/rolled.py``, which the port does not
-take over).
+axes, ``envs/base.py``) step through ``World.step``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import numpy as np
 import torch
 
 from parallax_tpu_torch.dynamics.bodies import BodyState
-from parallax_tpu_torch.engine.batched import _clip_c, _SoA
+from parallax_tpu_torch.engine.batched import _clip_c, _SoA, physics_core
+from parallax_tpu_torch.engine.rolled import RolledCircleWorld, physics_rolled
 from parallax_tpu_torch.engine.world import BodyDef, World, WorldConfig
 from parallax_tpu_torch.envs.base import BatchedEnvironmentMixin, Environment, TimeStep
 from parallax_tpu_torch.envs.plane_env import PlaneEnvMixin
@@ -74,8 +78,8 @@ class BilliardsConfig:
     # run the whole physics step as the fused CUDA kernel (cc/cb lanes, and
     # their reverse pass under autograd), for any n_object
     use_cuda_fused: bool = False
-    # the JAX package's offset-rolled all-pairs physics (engine/rolled.py):
-    # not ported, so True raises
+    # offset-rolled all-pairs physics (engine/rolled.py) on the batched
+    # path: static rolls of the ball planes in place of the lane table
     rolled: bool = False
 
 
@@ -129,12 +133,6 @@ class Billiards(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
     the CPU); see the module docstring."""
 
     def __init__(self, config: BilliardsConfig = BilliardsConfig(), device="cuda"):
-        if config.rolled:
-            raise NotImplementedError(
-                "BilliardsConfig(rolled=True) runs the JAX package's "
-                "engine/rolled.py, which the port does not take over (ROADMAP "
-                "'Do not port'); use the default rolled=False"
-            )
         self.config = config
         self.device = resolve_device(device)
         n = 1 + config.n_object
@@ -175,6 +173,25 @@ class Billiards(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
         )
         self.world, self._init_bodies = World.build(balls + walls, wc, device=self.device)
         self.n_balls = n
+        if config.rolled:
+            self._rolled_world = RolledCircleWorld(
+                n_balls=n,
+                radius=BALL_R,
+                inv_mass=1.0,
+                inv_inertia=1.0 / (2.0 / 5.0 * BALL_R**2),
+                e_ball=config.elasticity,
+                mu_ball=config.friction,
+                walls_lb=((-w - t, -h - t), (-w - t, h), (-w - t, -h), (w, -h)),
+                walls_ub=((w + t, -h), (w + t, h + t), (-w, h), (w + t, h)),
+                e_wall=config.wall_elasticity,
+                mu_wall=config.friction,
+                dt=config.dt,
+                gravity=(0.0, 0.0),
+                integrator="symplectic",
+                iterations=config.solver_iterations,
+                position_iterations=config.position_iterations,
+                contact=wc.contact,
+            )
         ib = self._init_bodies
         # [n_bodies, 1] init planes for the plane-space auto-reset
         self._init_px = ib.pos[:, 0:1].clone()
@@ -289,6 +306,11 @@ class Billiards(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
 
     def plane_make_state(self, bodies, aux, t, key) -> BilliardsState:
         return BilliardsState(bodies=bodies, potted=aux.T > 0.5, t=t, key=key)
+
+    def plane_physics(self, s: _SoA, potted):
+        if self.config.rolled:
+            return physics_rolled(self._rolled_world, s)
+        return physics_core(self.world, s)
 
     def plane_pre(self, s: _SoA, potted, actions) -> _SoA:
         cfg = self.config

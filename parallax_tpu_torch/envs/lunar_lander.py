@@ -18,8 +18,14 @@ axes, ``envs/base.py``) step through ``World.step`` on a world whose
 ground parts hold each world's terrain (``_world_with_terrain``), and so
 run the reference-parity knobs (``narrowphase="gjk_epa"``, the random
 solver modes); ``LanderJudge`` and ``make_world_forward`` drive the
-continuous-time ``evaluate``.  Not ported: ``LanderConfig``'s
-``terrain_candidates`` option.
+continuous-time ``evaluate``.
+
+``LanderConfig(terrain_candidates=True)`` pairs each dynamic body, on the
+batched path only, with a sliding window of K consecutive terrain
+segments (the lander 5, each leg 3) in place of all 7: the candidate
+world has 28 contact lanes where the full one has 48, and each step
+gathers the windows' vertex planes per world (``_candidate_override``).
+The per-world path keeps the full world.
 """
 
 from __future__ import annotations
@@ -90,6 +96,11 @@ class LanderConfig:
     # run the whole physics step as one CUDA kernel (ops/fused_step.py);
     # requires broadphase=False (the kernel has no AABB pre-mask stage)
     use_cuda_fused: bool = False
+    # batched path only: pair each dynamic body with a per-world window of K
+    # consecutive terrain segments instead of all 7 (K from the body's
+    # circumradius against the sampler's least inner segment width); the
+    # same physics on 28 contact lanes instead of 48
+    terrain_candidates: bool = False
     # lander contact graphs are shallow (legs + lander vs ground)
     solver_iterations: int = 3
     position_iterations: int = 2
@@ -292,17 +303,74 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
             device=self.device,
         )
 
-        # static contact-lane index lists: which lanes touch which bodies
-        ba = np.asarray(self.world.table.body_a)
-        bb = np.asarray(self.world.table.body_b)
+        # -- the batched path's world: per-body terrain-candidate windows --
+        # A dynamic body of circumradius R centred inside segment i can only
+        # overlap segments i-m..i+m with m = floor(R / MIN_SEG_W) + 1.
+        # MIN_SEG_W = 1.0 is the least inner segment width of the terrain
+        # sampler (its adjacent position draws lie >= 1.0 apart; the two
+        # edge segments run to +-100).  The candidate world gives each
+        # dynamic body its own K = 2m+1 ground parts, whose vertex planes
+        # are gathered per world and step: every contact that can be active
+        # lies inside the window, so the physics is the full table's.
+        self._use_candidates = bool(config.terrain_candidates)
+        if self._use_candidates:
+            MIN_SEG_W = 1.0
+            pv = self.world.parts.verts.cpu().numpy()
+            ms, Ks = [], []
+            for part in (0, 1, 2):
+                nv = self.world.parts.nverts[part]
+                r = float(np.linalg.norm(pv[part, :nv], axis=1).max())
+                m = int(np.floor(r / MIN_SEG_W)) + 1
+                ms.append(m)
+                Ks.append(min(2 * m + 1, N_TERRAIN))
+            ground_cand = BodyDef(
+                shapes=[
+                    polygon([(i, -9.0), (i + 1.0, -9.0), (i + 1.0, -10.0), (i, -10.0)])
+                    for i in range(sum(Ks))
+                ],
+                mass=np.inf,
+                inertia=np.inf,
+                elasticity=0.1,
+                friction=0.1,
+                name="ground",
+            )
+            starts = [3 + int(s) for s in np.cumsum([0] + Ks[:-1])]
+            part_filter = [
+                (b_i, gp)
+                for b_i in range(3)
+                for gp in range(3, 3 + sum(Ks))
+                if not starts[b_i] <= gp < starts[b_i] + Ks[b_i]
+            ]
+            self._bm_world, _ = World.build(
+                [lander, right_leg, left_leg, ground_cand], wc, joints=joints,
+                part_collision_filter=part_filter, device=self.device,
+            )
+            self._cand_parts = [(starts[i], Ks[i], ms[i]) for i in range(3)]
+            # a row per candidate part, in order: the dynamic body it serves,
+            # its place in the window, the body's m and its window's last start
+            self._cand_rows = torch.tensor(
+                [(bi, j, m, N_TERRAIN - K)
+                 for bi, (_, K, m) in enumerate(self._cand_parts) for j in range(K)],
+                device=self.device,
+            )
+        else:
+            self._bm_world = self.world
 
-        def lanes(body):
+        # static contact-lane index lists: which lanes touch which bodies.
+        # The per-world path reads the full world's lanes, the batched path
+        # (plane hooks) the batched world's
+        def lanes(world, body):
+            ba = np.asarray(world.table.body_a)
+            bb = np.asarray(world.table.body_b)
             sel = ((ba == body) & (bb == 3)) | ((ba == 3) & (bb == body))
             return torch.from_numpy(np.nonzero(sel)[0]).to(self.device)
 
-        self._left_leg_lanes = lanes(2)
-        self._right_leg_lanes = lanes(1)
-        self._lander_ground_lanes = lanes(0)
+        self._left_leg_lanes = lanes(self.world, 2)
+        self._right_leg_lanes = lanes(self.world, 1)
+        self._lander_ground_lanes = lanes(self.world, 0)
+        self._bm_left_leg_lanes = lanes(self._bm_world, 2)
+        self._bm_right_leg_lanes = lanes(self._bm_world, 1)
+        self._bm_lander_ground_lanes = lanes(self._bm_world, 0)
         self._ground_parts = [
             i for i, b in enumerate(self.world.parts.body) if b == 3
         ]
@@ -582,11 +650,38 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
             omega=add_row0(s.omega, -cfg.side_torque * side * cfg.dt),
         )
 
+    def _candidate_override(self, px_pred, tox, toy):
+        """Each dynamic body's terrain-candidate window.
+
+        ``px_pred`` ``[3, B]``: bodies 0..2's x at collide time; ``tox``/
+        ``toy`` ``[7, V, B]``: each world's terrain planes.  Returns the
+        ``terrain_override`` of the candidate world: K consecutive segments
+        a body, the window clamped into ``[0, 7-K]`` (a sliding window, so
+        no segment twice: a duplicate would resolve its contact twice).
+        One gather of the ``[11, V, B]`` planes; its gradient reaches the
+        chosen segment only, as the JAX package's select chain sends it.
+        A NaN ``px`` fails every comparison, so its window starts at 0."""
+        body, j, m, last = (r[:, None] for r in self._cand_rows.T)
+        x0 = tox.amin(dim=1)  # [7, B] each segment's left edge
+        px = px_pred[body[:, 0]]  # [11, B]
+        seg = (px[:, None, :] >= x0[None, 1:]).sum(dim=1)  # the segment px lies in
+        start = (seg - m).clamp(min=0).minimum(last)
+        idx = (start + j)[:, None, :].expand(-1, tox.shape[1], -1)
+        cx, cy = torch.gather(tox, 0, idx), torch.gather(toy, 0, idx)
+        p0 = self._cand_parts[0][0]
+        return {p0 + k: (cx[k], cy[k]) for k in range(cx.shape[0])}
+
     def plane_physics(self, s: _SoA, aux: LanderAux):
-        override = {
-            p: (aux.tox[i], aux.toy[i]) for i, p in enumerate(self._ground_parts)
-        }
-        return physics_core(self.world, s, terrain_override=override)
+        if self._use_candidates:
+            # the collide-time x: the integrator moves positions by exactly
+            # vx * dt (one multiply, then one add) before the narrow phase
+            px_pred = s.px[:3] + s.vx[:3] * self.config.dt
+            override = self._candidate_override(px_pred, aux.tox, aux.toy)
+        else:
+            override = {
+                p: (aux.tox[i], aux.toy[i]) for i, p in enumerate(self._ground_parts)
+            }
+        return physics_core(self._bm_world, s, terrain_override=override)
 
     def plane_post(self, s: _SoA, aux: LanderAux, con, actions, t_new):
         cfg = self.config
@@ -595,9 +690,9 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
         s = s._replace(omega=s.omega * self._omega_damp)
 
         act = con.active
-        left = act[self._left_leg_lanes].any(0)
-        right = act[self._right_leg_lanes].any(0)
-        lander_contact = act[self._lander_ground_lanes].any(0)
+        left = act[self._bm_left_leg_lanes].any(0)
+        right = act[self._bm_right_leg_lanes].any(0)
+        lander_contact = act[self._bm_lander_ground_lanes].any(0)
 
         px, py = s.px[0], s.py[0]
         vx, vy = s.vx[0], s.vy[0]

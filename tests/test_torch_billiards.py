@@ -183,8 +183,3 @@ def test_grad_through_billiards_matches_jax():
     want = float(jax.jit(jax.grad(jloss))(jnp.asarray(0.5)))
     assert np.isfinite(g.item()) and g.item() > 0
     np.testing.assert_allclose(g.item(), want, rtol=1e-4)
-
-
-def test_rolled_is_not_ported():
-    with pytest.raises(NotImplementedError, match="rolled"):
-        Billiards(BilliardsConfig(rolled=True), device="cpu")

@@ -17,6 +17,7 @@ from torch_scenarios import (
     area_tie_case,
     bb_tie_case,
     billiards_pairs_state,
+    candidate_contact_case,
     cb_tie_case,
     cotangents,
     crate_kick_loss,
@@ -845,3 +846,53 @@ def test_reverse_pass_plan_refuses_a_world_over_the_shared_memory_limit_on_card(
             lib.contact_solver_bwd_smem_bytes(20000, 64), "contact_solve_bwd")
     with pytest.raises(ValueError, match="contact_solve_fwd"):
         contact_solver.solve_plan(lib, 20000, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["solve", "solve_bwd", "fused", "fused_bwd"])
+def test_candidate_world_kernels_match_plain_versions_on_card(kernel):
+    """The four kernels on the lander's terrain-candidate world
+    (``LanderConfig(terrain_candidates=True)``: 28 lanes, 14 parts, 11 of
+    them gathered windows of the terrain) at B=1024, on the contact
+    scenario with the terrain tilted by 0.05: the forwards within 1e-5
+    (the fused step's flags identical), the reverse passes within rtol
+    2e-4, atol 1e-5 of the plain VJPs, each launched once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    fused = kernel.startswith("fused")
+    env = LunarLander(LanderConfig(terrain_candidates=True, broadphase=not fused,
+                                   use_cuda_fused=fused), device="cuda")
+    w, c = env._bm_world, env.config
+    assert w.table.n_contacts == 28
+    s, override = candidate_contact_case(env, 1024, "cuda", slope=0.05)
+    assert len(override) == 11
+    cot = cotangents(w.n_bodies, 1024, 5, "cuda")
+    args = (c.solver_iterations, c.position_iterations, c.dt, w.config.contact)
+    con = tb.collide_batched(w, s, override)
+    assert int(con.active.sum()) > 100
+    calls = {
+        "solve": (lambda: contact_solver.solve_contacts(w, s, con, *args),
+                  lambda: contact_solver.solve_contacts_plain(w, s, con, *args)),
+        "solve_bwd": (lambda: contact_solver.solve_contacts_bwd(w, s, con, cot, *args),
+                      lambda: contact_solver.solve_contacts_bwd_plain(w, s, con, cot, *args)),
+        "fused": (lambda: fused_step.physics_core_fused(w, s, override),
+                  lambda: fused_step.fused_step_plain(w, s, override)),
+        "fused_bwd": (lambda: fused_step.fused_step_bwd(w, s, override, cot),
+                      lambda: fused_step.fused_step_bwd_plain(w, s, override, cot)),
+    }
+    before = (contact_solver.launches, contact_solver.bwd_launches,
+              fused_step.launches, fused_step.bwd_launches)
+    got, want = (f() for f in calls[kernel])
+    torch.cuda.synchronize()
+    after = (contact_solver.launches, contact_solver.bwd_launches,
+             fused_step.launches, fused_step.bwd_launches)
+    which = ["solve", "solve_bwd", "fused", "fused_bwd"].index(kernel)
+    assert [a - b for a, b in zip(after, before)] == [int(i == which) for i in range(4)]
+    if kernel == "fused":
+        assert torch.equal(got[1].active, want[1].active)
+        got, want = got[0], want[0]
+    if kernel.endswith("bwd"):
+        got, want = (*got[0], *got[1:]), (*want[0], *want[1:])
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=RTOL if kernel.endswith("bwd") else 0, atol=ATOL)

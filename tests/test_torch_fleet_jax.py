@@ -6,20 +6,23 @@ conftest's 8-device CPU mesh, on the same worlds (the port's
 ``utils/prng.py`` draws JAX's keys, and the start states are checked
 against JAX's to the bit through ``utils/convert.py``'s dicts):
 
-* (e) the mesh-chunked lander rollout of 88 worlds, 12 steps: JAX at 11
-  worlds a device and chunk 4, the port at 22 a rank and chunk 5 (4 full
-  waves and a remainder of 2).  Bars as ``test_parallel.py:231`` sets them
-  between JAX's own mesh and one-device runs: pos and vel 5e-7, reward and
-  obs 1e-6 absolute, the flags equal;
-* (f) the mesh-chunked train step of ``test_parallel.py:288`` (48 worlds,
-  4 steps, zero weights, SGD at 1e-2): JAX at chunk 4 over 8 devices, the
-  port at 12 worlds a rank and chunk 5 (2 waves and a remainder of 2,
-  under the gradient).  Bars as ``tests/test_torch_train.py`` sets them:
-  the loss 1e-5 relative, each gradient 1e-4 relative in norm;
+* (e) the mesh-chunked lander rollout of 64 worlds, 12 steps: JAX at 8
+  worlds a device and chunk 4 (two waves a device), the port at 16 a rank
+  and chunk 5 (3 full waves and a remainder of 1).  Bars as
+  ``test_parallel.py:231`` sets them between JAX's own mesh and
+  one-device runs: pos and vel 5e-7, reward and obs 1e-6 absolute, the
+  flags equal;
+* (f) the mesh-chunked train step of ``test_parallel.py:288`` (4 steps,
+  zero weights, SGD at 1e-2) on the same 64 worlds: JAX at chunk 4 over 8
+  devices (two waves a device), the port at 16 worlds a rank and chunk 5
+  (3 waves and a remainder of 1, under the gradient).  Bars as
+  ``tests/test_torch_train.py`` sets them: the loss 1e-5 relative, each
+  gradient 1e-4 relative in norm;
 * (g) ``parallel/dryrun.py:dryrun_multichip`` on the four ranks.
 
-The ranks run while JAX compiles its two programs, so the file's time is
-about the longer of the two.
+JAX's two programs have whole waves only: a remainder wave would compile
+the step a second time.  The ranks run while JAX compiles, so the file's
+time is about the longer of the two.
 """
 
 import jax
@@ -31,7 +34,7 @@ import pytest
 from parallax_tpu.envs.lunar_lander import LunarLander as JaxLander
 from parallax_tpu.parallel.mesh import make_world_mesh, replicated, shard_batch
 from parallax_tpu.parallel.rollout import make_train_step
-from torch_fleet_worker import CONST_ACTION, FLEET_STEPS, Fleet
+from torch_fleet_worker import CONST_ACTION, FLEET_STEPS, JAX_FLEET_B, Fleet
 from torch_jax_states import hold, state_dict
 
 RANKS = 4
@@ -54,7 +57,7 @@ def runs(tmp_path_factory):
     mesh = make_world_mesh()
     env = JaxLander()
 
-    states = env.reset_fn_batch(jax.random.split(jax.random.PRNGKey(1), 88))
+    states = env.reset_fn_batch(jax.random.split(jax.random.PRNGKey(1), JAX_FLEET_B))
     final, traj = jax.jit(
         lambda s: env.rollout_batch(s, _policy, FLEET_STEPS, max_chunk=4, mesh=mesh)
     )(shard_batch(states, mesh))
@@ -65,7 +68,7 @@ def runs(tmp_path_factory):
 
     params = {"w": jnp.zeros((9, 2)), "b": jnp.zeros(2)}
     optimizer = optax.sgd(LR)
-    tstates = env.reset_fn_batch(jax.random.split(jax.random.PRNGKey(2), 48))
+    tstates = env.reset_fn_batch(jax.random.split(jax.random.PRNGKey(2), JAX_FLEET_B))
     step = make_train_step(env, _linear, optimizer, 4, max_chunk=4, mesh=mesh)
     new, _, _, metrics = jax.jit(step)(
         jax.device_put(params, replicated(mesh)),
@@ -83,7 +86,7 @@ def _start(got: dict) -> dict:
 
 
 def test_mesh_rollout_matches_jax_mesh(runs):
-    """(e): the same 88 worlds from the same keys, 12 steps, both meshes."""
+    """(e): the same 64 worlds from the same keys, 12 steps, both meshes."""
     results, want, _ = runs
     got = results["jax_rollout"][0]
     hold(_start(got), want["start"], {}, what="start states")

@@ -17,12 +17,13 @@ Parts (each rank runs the listed ones, in order):
 * ``train``: two lander train steps on the mesh (11 worlds a rank, chunk
   4, 4 steps in 2 segments, Adam), the collectives of each counted, and
   this rank's loss, return and updated parameters;
-* ``jax_rollout``: the lander rollout of ``test_parallel.py``'s 88 worlds
+* ``jax_rollout``: the lander rollout of ``JAX_FLEET_B`` worlds
   (``PRNGKey(1)``), 12 steps, chunk 5 on this rank's share, read whole,
   with the start states;
 * ``jax_train``: one train step of ``test_parallel.py``'s mesh-chunked
-  configuration (48 worlds from ``PRNGKey(2)``, 4 steps, zero weights,
-  SGD at 1e-2) at chunk 5, with the gradients and the start states;
+  configuration (``JAX_FLEET_B`` worlds from ``PRNGKey(2)``, 4 steps, zero
+  weights, SGD at 1e-2) at chunk 5, with the gradients and the start
+  states;
 * ``dryrun``: ``parallel/dryrun.py:dryrun_multichip`` on the mesh.
 """
 
@@ -41,6 +42,9 @@ COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast"
 CONST_ACTION = (0.4, 0.05)  # test_parallel.py's policy: one action for every world
 FLEET_STEPS, FLEET_CHUNK, FLEET_PER_RANK = 12, 4, 11
 RELAYOUT_STEPS = 3
+# the worlds of the runs held against JAX's 8-device mesh: 8 a device at
+# chunk 4 there (two whole waves), 16 a rank at chunk 5 on 4 ranks here
+JAX_FLEET_B, JAX_FLEET_CHUNK = 64, 5
 
 
 @contextlib.contextmanager
@@ -171,9 +175,9 @@ def _part_jax_rollout(mesh, rank):
     from parallax_tpu_torch.utils import convert
 
     env = LunarLander(device="cpu")
-    start = env.reset_fn_batch(jax_keys(1, 88))
+    start = env.reset_fn_batch(jax_keys(1, JAX_FLEET_B))
     final, traj = env.rollout_batch(shard_batch(start, mesh), const_policy, FLEET_STEPS,
-                                    max_chunk=5, mesh=mesh)
+                                    max_chunk=JAX_FLEET_CHUNK, mesh=mesh)
     out = rollout_arrays(gather_batch(final, mesh), gather_batch(traj, mesh, dim=1))
     out.update({f"start.{k}": v for k, v in convert.lander_state_to_numpy(start).items()})
     return out
@@ -188,8 +192,8 @@ def _part_jax_train(mesh, rank):
     env = LunarLander(device="cpu")
     params = {"w": torch.zeros(9, 2, requires_grad=True), "b": torch.zeros(2, requires_grad=True)}
     step = make_train_step(env, linear_policy, torch.optim.SGD(params.values(), lr=1e-2), 4,
-                           max_chunk=5, mesh=mesh)
-    start = env.reset_fn_batch(jax_keys(2, 48))
+                           max_chunk=JAX_FLEET_CHUNK, mesh=mesh)
+    start = env.reset_fn_batch(jax_keys(2, JAX_FLEET_B))
     params, _, metrics = step(params, shard_batch(start, mesh))
     out = {"loss": metrics["loss"].numpy(), "mean_return": metrics["mean_return"].numpy()}
     out.update({f"grad_{k}": v.grad.numpy() for k, v in params.items()})

@@ -43,6 +43,19 @@ def lander_contact_case(env, B, device="cpu"):
     return tb._to_soa(st.bodies), override
 
 
+def candidate_contact_case(env, B, device="cpu", slope=0.0):
+    """The contact scenario (:func:`lander_contact_case`) on a lander with
+    ``LanderConfig(terrain_candidates=True)``: ``(s, override)``, the
+    override the candidate windows at collide time (11 parts), gathered
+    from the terrain tilted by ``slope`` (y + slope * x, so that a reverse
+    pass has an x cotangent to give the terrain)."""
+    s, full = lander_contact_case(env, B, device)
+    tox = torch.stack([x for x, _ in full.values()])
+    toy = torch.stack([y + slope * x for x, y in full.values()])
+    px_pred = s.px[:3] + s.vx[:3] * env.config.dt
+    return s, env._candidate_override(px_pred, tox, toy)
+
+
 def tie_solve_case(env, device="cpu"):
     """The clamp-tie case of the solve, on the lander world at B=1: every
     body at rest at its spawn pose and one active lane, lane 4 (the hull
@@ -702,6 +715,46 @@ def override_state(world, slab, B, seed=0):
 
     s = tb._SoA(px=t(x), py=t(y), vx=t(vx), vy=t(vy), angle=t(a), omega=t(w))
     return s, {slab: (t(tx), t(ty))}
+
+
+def lander_scatter_state(env, B, seed=11):
+    """The fleet scattered across the terrain as the JAX package's
+    candidate-window test scatters it (``tests/test_batched_engine.py:
+    231``): batch-major lander states reset from numpy-seeded keys, every
+    body shifted by one offset a world (x in [-11.5, 11.5], so every
+    segment and its edges are swept; y in [-8, 2], down into the ground)
+    and every body's vy lowered by 2."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 2**32, (B, 2), dtype=np.uint32)
+    dev = env.device
+    st = env.reset_fn_batch(torch.from_numpy(k.astype(np.int64)).to(dev))
+    off = np.stack([rng.uniform(-11.5, 11.5, B), rng.uniform(-8.0, 2.0, B)], -1)
+    b = st.bodies
+    return st._replace(bodies=b._replace(
+        pos=b.pos + torch.from_numpy(off.astype(np.float32)).to(dev)[:, None, :],
+        vel=b.vel + torch.tensor([0.0, -2.0], device=dev),
+    ))
+
+
+def billiards_scatter(env, B, seed, speed=1.5):
+    """``tests/test_rolled.py``'s scattered table: ``[n_bodies, B]`` planes
+    with the balls uniform over the table and normal velocities of scale
+    ``speed`` (numpy-seeded), the walls at rest, so that ball-ball
+    contacts, wall contacts and separated pairs all occur."""
+    k = np.random.default_rng(seed).integers(0, 2**32, (B, 2), dtype=np.uint32)
+    s = tb._to_soa(env.reset_fn_batch(torch.from_numpy(k.astype(np.int64)).to(env.device)).bodies)
+    n = env.n_balls
+    rng = np.random.default_rng(seed + 100)
+    rows = {
+        "px": rng.uniform(-0.98, 0.98, (n, B)),
+        "py": rng.uniform(-0.48, 0.48, (n, B)),
+        "vx": rng.standard_normal((n, B)) * speed,
+        "vy": rng.standard_normal((n, B)) * speed,
+    }
+    return s._replace(**{
+        f: torch.cat([torch.from_numpy(v.astype(np.float32)).to(env.device), getattr(s, f)[n:]])
+        for f, v in rows.items()
+    })
 
 
 def lander_touch_state(env, B, seed=0):

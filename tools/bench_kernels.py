@@ -6,7 +6,8 @@
 
 Each scene is one of ``chip_smoke.py`` phase 3's, at the same inputs
 (``tests/torch_scenarios.py``, numpy seeds): the lander's contact scenario,
-RoboCup's overlap state, billiards8's pairs state, the crate pile, the
+the same on the lander's terrain-candidate world (28 lanes, 11 gathered
+windows; phase 9), RoboCup's overlap state, billiards8's pairs state, the crate pile, the
 mixed world (the solver only) and billiards48's pairs state (the solver
 only, 52 bodies and 1,320 lanes).  For each it times the forward kernel
 and the reverse pass of the solver (``contact_solver.solve_contacts``,
@@ -65,6 +66,13 @@ def scenes(B):
     out.append(("lander", "solve", env.world, *lanes(env.world, s, ov, False), cot))
     env_f = LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True), device="cuda")
     out.append(("lander", "fused", env_f.world, s, ov, None, cot))
+    env_c = LunarLander(LanderConfig(terrain_candidates=True), device="cuda")
+    s, ov = ts.candidate_contact_case(env_c, B, "cuda")
+    wc = env_c._bm_world
+    out.append(("lander_candidates", "solve", wc, *lanes(wc, s, ov, False), cot))
+    env_cf = LunarLander(LanderConfig(terrain_candidates=True, broadphase=False,
+                                      use_cuda_fused=True), device="cuda")
+    out.append(("lander_candidates", "fused", env_cf._bm_world, s, ov, None, cot))
     rc = RoboCup(RoboCupConfig(use_cuda_fused=True), device="cuda")
     s = ts.robocup_overlap_state(rc, B, 0)
     cot = ts.cotangents(rc.world.n_bodies, B, 5, "cuda")
