@@ -1760,6 +1760,138 @@ def chained_ms(step, st, acts):
     return (time.perf_counter() - t0) * 1e3 / len(acts), st
 
 
+def timed_steps(name, label, step, st, acts, gpu):
+    """EA_STEPS chained steps of ``step`` from ``st`` after a warm-up step,
+    then one profiled step: ``({ms, device_kernels, device_ms, busy_share},
+    (solve launches, fused step launches) in the chain)``, printed."""
+    step(st, acts[0])
+    before = kernel_counts()
+    ms, _ = chained_ms(step, st, acts)
+    solves, _, steps, _ = (a - b for a, b in zip(kernel_counts(), before))
+    kernels, dev_ms = busy_ms(lambda: step(st, acts[0]))
+    print(f"[env-api] {name} {label} B={B}: {ms:.3f} ms a step (host clock, {EA_STEPS} "
+          f"chained, one sync), {kernels} device kernels a step ({dev_ms:.3f} ms of device "
+          f"time, busy {dev_ms / ms:.3f}); {solves} solve and {steps} fused step launches in "
+          f"the chain, on {gpu}")
+    return ({"ms": ms, "device_kernels": kernels, "device_ms": dev_ms, "busy_share": dev_ms / ms},
+            (solves, steps))
+
+
+def step_fn_batch_legs(gpu):
+    """Phase 3d (g): ``PlaneEnvMixin.step_fn_batch``, the raw plane step (no
+    watchdog, no auto-reset), on the split lander, the fused lander
+    (``LanderConfig(use_cuda_fused=True, broadphase=False)``) and split
+    RoboCup, from the phase's scenes.
+    (a) At B, EA_STEPS chained steps beside ``step_batch`` (``env.step`` is
+    (a) above): ms a step, device kernels a step, busy share; the split
+    worlds launch the solve kernel and no fused step, the fused lander the
+    fused step and no solve.
+    (b) One step from the same states against ``step_batch``: on the worlds
+    ``step_batch`` does not reset, bodies, reward, obs, terminated and t
+    equal to the bit (one helper, ``_plane_step``, runs both), and the key
+    is the input key.
+    (c) At EA_CPU_B, one step card against CPU at phase 4's bars: at least
+    CPU_DONE_SHARE of the worlds with equal flags, on them obs and reward
+    within CPU_ATOL; on the landers the gradient of ``ts.reward.sum()``
+    with respect to the actions within GRAD_RTOL in norm (phase 6's bar),
+    through the solve's reverse kernel (split) and the fused step's
+    (fused).
+    (d) A reference-mode RoboCup (``narrowphase="gjk_epa"``,
+    ``solver_mode="random_one_per_body"``) on CUDA tensors:
+    ``step_fn_batch`` raises ``ValueError`` and launches no kernel."""
+    from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
+    from parallax_tpu_torch.envs.robocup import RoboCup, RoboCupConfig
+    from parallax_tpu_torch.utils.pytree import tree_map
+    from torch_scenarios import env_actions, lander_scene, robocup_scene
+
+    dev = torch.device("cuda")
+    fused_cfg = LanderConfig(use_cuda_fused=True, broadphase=False)
+    legs = {"lander": (lambda d: LunarLander(device=d), lander_scene),
+            "lander_fused": (lambda d: LunarLander(fused_cfg, device=d), lander_scene),
+            "robocup": (lambda d: RoboCup(device=d), robocup_scene)}
+    out = {}
+    for name, (make, scene) in legs.items():
+        env, env_cpu = make("cuda"), make("cpu")
+        fused = name == "lander_fused"
+        entry = {}
+        with torch.no_grad():
+            st = scene(env, B, seed=3)
+            acts = env_actions(env, EA_STEPS, B, seed=4)
+            # (a) timed beside step_batch
+            for label, step in (("step_batch", env.step_batch),
+                                ("step_fn_batch", env.step_fn_batch)):
+                entry[label], (solves, steps) = timed_steps(name, label, step, st, acts, gpu)
+                check((steps > 0 and solves == 0) if fused else (solves > 0 and steps == 0),
+                      f"{name} {label}: {solves} solve and {steps} fused step launches")
+                entry[label].update(solve_launches=solves, fused_launches=steps)
+            # (b) one step against step_batch, to the bit where step_batch keeps the world
+            got, ts = env.step_fn_batch(st, acts[0])
+            want, wts = env.step_batch(st, acts[0])
+            keep = ~wts.done
+            check(bool(keep.any()) and not bool(keep.all()), f"{name}: scene does not mix")
+            pairs = [(getattr(got.bodies, f), getattr(want.bodies, f)) for f in got.bodies._fields]
+            pairs += [(ts.reward, wts.reward), (ts.obs, wts.obs),
+                      (ts.terminated, wts.terminated), (got.t, want.t)]
+            check(all(torch.equal(a[keep], b[keep]) for a, b in pairs),
+                  f"{name}: step_fn_batch differs from step_batch on a world it keeps")
+            check(torch.equal(got.key, st.key), f"{name}: step_fn_batch changed the key")
+            entry["vs_step_batch"] = {"worlds_kept": int(keep.sum()), "bitwise": True}
+            print(f"[env-api] {name} step_fn_batch against step_batch, one step at B={B}: "
+                  f"bodies, reward, obs, terminated and t equal to the bit on the "
+                  f"{int(keep.sum())} worlds step_batch keeps; the key unchanged")
+            del st, acts, got, want
+        # (c) card against CPU, values and the gradient wrt the actions
+        cst = scene(env_cpu, EA_CPU_B, seed=5)
+        gst = tree_map(lambda x: x.to(dev), cst)
+        ca = env_actions(env_cpu, 1, EA_CPU_B, seed=6)[0]
+        res = {}
+        for d, e, s in (("cuda", env, gst), ("cpu", env_cpu, cst)):
+            a = ca.to(d).requires_grad_(name != "robocup")
+            before = kernel_counts()
+            _, rts = e.step_fn_batch(s, a)
+            grad = torch.autograd.grad(rts.reward.sum(), a)[0].cpu() if a.requires_grad else None
+            res[d] = (tree_map(lambda x: x.detach().cpu(), rts), grad,
+                      [x - y for x, y in zip(kernel_counts(), before)])
+        (g, gg, counts), (c, cg, _) = res["cuda"], res["cpu"]
+        same = (g.terminated == c.terminated) & (g.truncated == c.truncated)
+        share = same.double().mean().item()
+        oerr = (g.obs - c.obs)[same].abs().max().item()
+        rerr = (g.reward - c.reward)[same].abs().max().item()
+        check(share >= CPU_DONE_SHARE and oerr <= CPU_ATOL and rerr <= CPU_ATOL,
+              f"{name} step_fn_batch card vs CPU: flags {share}, obs {oerr}, reward {rerr}")
+        entry["vs_cpu"] = {"B": EA_CPU_B, "flags_share": share, "obs_err": oerr,
+                           "reward_err": rerr}
+        msg = ""
+        if gg is not None:
+            grel = ((gg - cg).norm() / cg.norm()).item()
+            bwd = counts[3] if fused else counts[1]
+            check(bwd > 0 and (counts[1] == 0 if fused else counts[3] == 0),
+                  f"{name}: reverse launches {counts}")
+            check(np.isfinite(grel) and grel <= GRAD_RTOL,
+                  f"{name} step_fn_batch d(reward)/d(actions): card vs CPU rel diff {grel}")
+            entry["vs_cpu"].update(grad_rel=grel, reverse_launches=bwd)
+            msg = (f"; d(reward.sum())/d(actions) rel diff in norm {grel:.2e} ({bwd} "
+                   f"{'fused step' if fused else 'solve'} reverse launch)")
+        print(f"[env-api] {name} step_fn_batch card vs CPU, one step at B={EA_CPU_B}: "
+              f"{share:.4f} of the worlds with equal flags, on them max |diff| obs "
+              f"{oerr:.3e}, reward {rerr:.3e}{msg}")
+        out[name] = entry
+    # (d) the reference modes are refused on the card, as in the JAX package
+    ref = RoboCup(RoboCupConfig(narrowphase="gjk_epa", solver_mode="random_one_per_body"),
+                  device="cuda")
+    rst = ref.reset_fn_batch(keys_for(8, 60, dev))
+    before = kernel_counts()
+    try:
+        ref.step_fn_batch(rst, torch.full((8, ref.action_size), 0.5, device=dev))
+        fail("reference-mode RoboCup: step_fn_batch ran on the card")
+    except ValueError as e:
+        check(kernel_counts() == before, "reference-mode RoboCup: a kernel launched")
+        out["reference_refused"] = str(e)[:120]
+    print(f"[env-api] reference-mode RoboCup step_fn_batch on the card: ValueError "
+          f"({out['reference_refused']})")
+    return out
+
+
 def env_api_phase(gpu):
     """Phase 3d: the per-world env API (``envs/base.py``) on the card.
     ``Environment.step`` runs ``World.step`` per world, plain torch as the
@@ -1789,11 +1921,12 @@ def env_api_phase(gpu):
     alone is truncated and reset while the fleet steps on; a checkpoint of
     a card fleet with its policy and Adam state continues 3 train steps
     bitwise as the unbroken run; ``Renderer.render_env`` of a card state
-    draws.  Returns ``{case: entry}``."""
+    draws.
+    (g) ``step_fn_batch`` on the kernels: :func:`step_fn_batch_legs`.
+    Returns ``{case: entry}``."""
     from parallax_tpu_torch.envs.base import ConstantControl, evaluate
     from parallax_tpu_torch.envs.lunar_lander import LanderJudge, LunarLander, make_world_forward
     from parallax_tpu_torch.envs.robocup import RoboCup
-    from parallax_tpu_torch.ops import contact_solver, fused_step
     from parallax_tpu_torch.parallel.rollout import adam, make_train_step
     from parallax_tpu_torch.utils import checkpoint, dbc
     from parallax_tpu_torch.utils.pytree import tree_leaves, tree_map
@@ -1812,20 +1945,11 @@ def env_api_phase(gpu):
             entry = {}
             # (a) per-world against plane-space steps, each timed and profiled
             for label, step in (("env.step", env.step), ("step_batch", env.step_batch)):
-                counts = contact_solver.launches, fused_step.launches
-                step(st, acts[0])
-                ms, _ = chained_ms(step, st, acts)
-                launched = contact_solver.launches - counts[0], fused_step.launches - counts[1]
-                kernels, dev_ms = busy_ms(lambda: step(st, acts[0]))
+                entry[label], launched = timed_steps(name, label, step, st, acts, gpu)
                 if label == "env.step":
                     check(launched == (0, 0), f"{name}: env.step launched a kernel of the repo")
                 else:
                     check(launched[0] > 0, f"{name}: step_batch launched no solve kernel")
-                entry[label] = {"ms": ms, "device_kernels": kernels, "device_ms": dev_ms,
-                                "busy_share": dev_ms / ms}
-                print(f"[env-api] {name} {label} B={B}: {ms:.3f} ms a step (host clock, "
-                      f"{EA_STEPS} chained, one sync), {kernels} device kernels a step "
-                      f"({dev_ms:.3f} ms of device time, busy {dev_ms / ms:.3f}), on {gpu}")
             # (b) one step, per-world against plane
             got, ts = env.step(st, acts[0])
             want, wts = env.step_batch(st, acts[0])
@@ -2013,6 +2137,11 @@ def env_api_phase(gpu):
     out["renderer"] = {"pixels_drawn": int((frame > 0).any(-1).sum())}
     print(f"[env-api] Renderer.render_env of a card state: {out['renderer']['pixels_drawn']} "
           "pixels drawn")
+
+    t0 = time.perf_counter()
+    out["step_fn_batch"] = step_fn_batch_legs(gpu)
+    out["step_fn_batch"]["seconds"] = time.perf_counter() - t0
+    print(f"[clock] phase 3d (g): step_fn_batch took {out['step_fn_batch']['seconds']:.1f} s")
     return out
 
 

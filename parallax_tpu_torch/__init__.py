@@ -20,3 +20,7 @@ the backward pass), the offset-rolled circle physics of billiards
 contact-solver and fused-step kernels for NVIDIA Hopper with their reverse
 passes (``ops``, ``csrc/``).  It imports torch and numpy, never jax.
 """
+
+__version__ = "0.1.0"
+
+from parallax_tpu_torch import geometry, utils  # noqa: E402, F401

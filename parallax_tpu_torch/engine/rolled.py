@@ -26,11 +26,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from parallax_tpu_torch.dynamics.impulses import ContactSolverConfig
 from parallax_tpu_torch.engine.batched import ContactsBM, _cb_bm, _cc_bm, _SoA
 from parallax_tpu_torch.geometry.math import _const, _max_c, _min_c
+from parallax_tpu_torch.utils.device import static_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +59,14 @@ class RolledCircleWorld:
     @property
     def offsets(self):
         return range(1, self.n_balls // 2 + 1)
+
+    def lane_valid(self, d: int) -> np.ndarray:
+        """``[nb]`` static validity for offset ``d`` (even ``nb``: half of
+        ``d = nb/2``, whose second half repeats its first)."""
+        nb = self.n_balls
+        if 2 * d == nb:
+            return np.arange(nb) < nb // 2
+        return np.ones(nb, bool)
 
 
 def _roll(x, d):
@@ -99,9 +109,8 @@ def physics_rolled(world: RolledCircleWorld, s: _SoA) -> tuple[_SoA, ContactsBM]
     cc = []
     for d in world.offsets:
         pen_x, pen_y, pt_x, pt_y, active = _cc_bm(px, py, r, _roll(px, -d), _roll(py, -d), r)
-        if 2 * d == nb:  # even nb: the offset's second half repeats its first
-            active = active & (torch.arange(nb, device=px.device) < nb // 2)[:, None]
-        cc.append((pen_x, pen_y, pt_x, pt_y, active))
+        valid = static_tensor(world.lane_valid(d), px.device)[:, None]
+        cc.append((pen_x, pen_y, pt_x, pt_y, active & valid))
 
     # ball-wall: W lanes of [nb, B] (A = ball, B = static box)
     cw = []

@@ -258,8 +258,10 @@ class BatchedEnvironmentMixin:
 
     ``step_fn_batch(states, actions)`` defaults to ``step_fn`` on the batch
     (the port of ``vmap(step_fn)``).  The four envs inherit
-    ``PlaneEnvMixin`` first, whose ``reset_batch``/``step_batch`` run the
-    plane-space rollout's own step.
+    ``PlaneEnvMixin`` first: their ``step_fn_batch`` is its plane-space
+    step (no watchdog, no auto-reset; ``physics_core`` on the body
+    planes, so the kernels on CUDA tensors), and their
+    ``reset_batch``/``step_batch`` run the plane-space rollout's own step.
     """
 
     def reset_batch(self, keys):

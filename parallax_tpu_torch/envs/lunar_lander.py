@@ -124,6 +124,11 @@ class LanderState(NamedTuple):
     # [B, 2] f32: previous step's (left, right) leg-ground contact flags
     leg_contacts: torch.Tensor
 
+    @property
+    def terrain_view(self):
+        """The flat terrain as ``[..., 7, MAX_VERTS, 2]`` vertices."""
+        return self.terrain.reshape(self.terrain.shape[:-1] + (N_TERRAIN, MAX_VERTS, 2))
+
 
 class LanderAux(NamedTuple):
     """Env-specific plane aux for the generic plane loop."""

@@ -12,6 +12,8 @@ step gives ``step_batch``, one batched step of batch-major states; it
 stands in for JAX's ``BatchedEnvironmentMixin.step_batch`` over the plane
 ``step_fn_batch``, with the same watchdog, key tree and results, and the
 envs inherit it before ``envs/base.BatchedEnvironmentMixin``'s.
+``step_fn_batch`` is the raw plane step (no watchdog, no auto-reset); it
+and the rollout's step share one helper, ``_plane_step``.
 """
 
 from __future__ import annotations
@@ -117,36 +119,46 @@ class PlaneEnvMixin:
     def _from_planes(self, ps: PlaneState):
         return self.plane_make_state(_from_soa(ps.s), ps.aux, ps.t, ps.key)
 
-    def _step_planes(self, ps: PlaneState, actions):
-        """pre -> physics -> post -> watchdog/limits -> obs -> auto-reset."""
+    def _plane_step(self, ps: PlaneState, actions):
+        """pre -> physics -> post -> obs and the step limit: the raw step
+        that ``_step_planes`` and ``step_fn_batch`` share.  Returns the
+        stepped planes, aux and ``t`` and a ``TimeStep`` whose ``truncated``
+        is the step limit alone."""
         s = self.plane_pre(ps.s, ps.aux, actions)
         s, con = self.plane_physics(s, ps.aux)
         t_new = ps.t + 1
         s, aux, reward, terminated, info = self.plane_post(
             s, ps.aux, con, actions, t_new
         )
+        ts = TimeStep(
+            obs=self.plane_obs(s, aux),
+            reward=reward,
+            terminated=terminated,
+            truncated=(t_new >= self.plane_max_steps) & ~terminated,
+            info=info,
+        )
+        return s, aux, t_new, ts
 
-        obs = self.plane_obs(s, aux)
+    def _step_planes(self, ps: PlaneState, actions):
+        """pre -> physics -> post -> obs -> watchdog/limits -> auto-reset."""
+        s, aux, t_new, ts = self._plane_step(ps, actions)
 
         # NaN watchdog over every body plane, every float aux plane and the
         # emitted reward and obs: a flagged world is truncated (and so
         # reset) the step the NaN appears, and its emissions are zeroed
-        finite = torch.isfinite(reward)
+        finite = torch.isfinite(ts.reward)
         for leaf in list(s) + [
             x for x in tree_leaves(aux) if torch.is_tensor(x) and x.is_floating_point()
         ]:
             finite = finite & _finite_per_world(leaf)
-        finite = finite & torch.isfinite(obs).reshape(obs.shape[0], -1).all(1)
-        truncated = ((t_new >= self.plane_max_steps) & ~terminated) | ~finite
-        done = terminated | truncated
-
-        ts = TimeStep(
-            obs=_zero_where_bad(finite, obs),
-            reward=_zero_where_bad(finite, reward),
-            terminated=terminated,
-            truncated=truncated,
-            info=tree_map(lambda x: _zero_where_bad(finite, x), info),
+        finite = finite & torch.isfinite(ts.obs).reshape(ts.obs.shape[0], -1).all(1)
+        ts = ts._replace(
+            obs=_zero_where_bad(finite, ts.obs),
+            reward=_zero_where_bad(finite, ts.reward),
+            truncated=ts.truncated | ~finite,
+            info=tree_map(lambda x: _zero_where_bad(finite, x), ts.info),
         )
+        done = ts.done
 
         # in-graph auto-reset; key tree split(key) -> (reset, carry)
         keys = prng.split(ps.key)  # [B, 2, 2]
@@ -169,6 +181,16 @@ class PlaneEnvMixin:
         ``(new_states, TimeStep)``."""
         ps, ts = self._step_planes(self._to_planes(states), actions)
         return self._from_planes(ps), ts
+
+    def step_fn_batch(self, states, actions):
+        """One batched step of batch-major ``states`` in plane space, without
+        the watchdog or the auto-reset: ``(new_states, TimeStep)``, the key
+        unchanged and ``truncated`` the step limit alone.  The hook that
+        ``BatchedEnvironmentMixin.step_batch`` builds on in the JAX package;
+        a world that ``physics_core`` does not run raises ``ValueError``."""
+        ps = self._to_planes(states)
+        s, aux, t_new, ts = self._plane_step(ps, actions)
+        return self.plane_make_state(_from_soa(s), aux, t_new, ps.key), ts
 
     def rollout_batch(self, states, policy_fn, n_steps, policy_params=None,
                       max_chunk=None, mesh=None, remat_steps=False,

@@ -31,6 +31,8 @@ CIRCLE = 0
 BOX = 1  # axis-aligned box
 POLYGON = 2
 
+KIND_NAMES = {CIRCLE: "circle", BOX: "box", POLYGON: "polygon"}
+
 MAX_VERTS = 8
 
 
@@ -63,6 +65,9 @@ def box(lower, upper) -> ShapeSpec:
     if not np.all(upper > lower):
         raise ValueError(f"box is invalid: lower={lower} upper={upper}")
     return ShapeSpec(kind=BOX, verts=np.stack([lower, upper]), radius=0.0)
+
+
+aabb = box
 
 
 def polygon(vertices) -> ShapeSpec:

@@ -41,6 +41,15 @@ def jax_state(jlike, d: dict):
     return jlike.replace(bodies=bodies, **rest)
 
 
+def jax_state_of(cls, d: dict):
+    """``d`` (see :func:`state_dict`) as a JAX state of the flax class ``cls``."""
+    from parallax_tpu.dynamics.bodies import BodyState
+
+    bodies = BodyState(**{g: jnp.asarray(d[f"bodies.{g}"]) for g in BODY_FIELDS})
+    rest = {f: jnp.asarray(d[f]) for f in cls.__dataclass_fields__ if f != "bodies"}
+    return cls(bodies=bodies, **rest)
+
+
 def np_tree(tree):
     """Tensors and jax arrays of a TimeStep (NamedTuple, flax struct, dict)
     -> a dict of numpy arrays keyed by their path."""
