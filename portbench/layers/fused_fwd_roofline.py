@@ -1,0 +1,13 @@
+"""The fused step kernel's share of its roofline (kernel row 3,
+``csrc/fused_step.cu``): the frozen bound for the run's mean active lanes a
+step over the kernel's mean time a call in the trace."""
+
+from portbench import roofline, tracing
+
+
+def read(traced):
+    ms = tracing.kernel_ms(traced, "fused_step_kernel")
+    if ms is None:
+        return None
+    bound = roofline.fused_bound(traced.shapes, traced.active_per_step, traced.batch)
+    return roofline.share(bound["ms"], ms)
