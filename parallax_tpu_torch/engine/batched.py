@@ -42,6 +42,7 @@ from parallax_tpu_torch.dynamics.impulses import ContactSolverConfig
 from parallax_tpu_torch.engine.collider import BROADPHASE_MARGIN
 from parallax_tpu_torch.geometry.math import _clip_c, _const, _max_c, _min_c  # noqa: F401
 from parallax_tpu_torch.geometry.shapes import CIRCLE, POLYGON, edge_mask_for
+from parallax_tpu_torch.utils.profiling import named
 
 INF = float("inf")
 
@@ -1092,6 +1093,13 @@ def step_batched(
     return _from_soa(s), con
 
 
+def _collide_span(world, s: _SoA, terrain_override=None) -> ContactsBM:
+    """``collide_batched`` inside the ``px.collide`` span (inside the
+    checkpoint on the remat path, so its recompute shows the span too)."""
+    with named("px.collide"):
+        return collide_batched(world, s, terrain_override)
+
+
 def physics_core(
     world, s: _SoA, dt: Optional[float] = None, accel=None, terrain_override=None
 ) -> tuple[_SoA, ContactsBM]:
@@ -1109,10 +1117,10 @@ def physics_core(
     s, dt = integrate_bm(world, s, dt, accel)
     if _REMAT_COLLIDE:
         con = torch.utils.checkpoint.checkpoint(
-            collide_batched, world, s, terrain_override, use_reentrant=False
+            _collide_span, world, s, terrain_override, use_reentrant=False
         )
     else:
-        con = collide_batched(world, s, terrain_override)
+        con = _collide_span(world, s, terrain_override)
     if cfg.use_cuda_solver and world.table.n_contacts > 0:
         from parallax_tpu_torch.ops.contact_solver import solve_contacts
 

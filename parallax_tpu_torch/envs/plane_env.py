@@ -27,6 +27,7 @@ from parallax_tpu_torch.dynamics.bodies import BodyState
 from parallax_tpu_torch.engine.batched import _SoA, _from_soa, _to_soa, physics_core
 from parallax_tpu_torch.envs.base import TimeStep
 from parallax_tpu_torch.utils import prng
+from parallax_tpu_torch.utils.profiling import named
 from parallax_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 
@@ -125,7 +126,8 @@ class PlaneEnvMixin:
         stepped planes, aux and ``t`` and a ``TimeStep`` whose ``truncated``
         is the step limit alone."""
         s = self.plane_pre(ps.s, ps.aux, actions)
-        s, con = self.plane_physics(s, ps.aux)
+        with named("px.physics"):
+            s, con = self.plane_physics(s, ps.aux)
         t_new = ps.t + 1
         s, aux, reward, terminated, info = self.plane_post(
             s, ps.aux, con, actions, t_new
@@ -141,36 +143,39 @@ class PlaneEnvMixin:
 
     def _step_planes(self, ps: PlaneState, actions):
         """pre -> physics -> post -> obs -> watchdog/limits -> auto-reset."""
-        s, aux, t_new, ts = self._plane_step(ps, actions)
+        with named("px.step"):
+            s, aux, t_new, ts = self._plane_step(ps, actions)
 
-        # NaN watchdog over every body plane, every float aux plane and the
-        # emitted reward and obs: a flagged world is truncated (and so
-        # reset) the step the NaN appears, and its emissions are zeroed
-        finite = torch.isfinite(ts.reward)
-        for leaf in list(s) + [
-            x for x in tree_leaves(aux) if torch.is_tensor(x) and x.is_floating_point()
-        ]:
-            finite = finite & _finite_per_world(leaf)
-        finite = finite & torch.isfinite(ts.obs).reshape(ts.obs.shape[0], -1).all(1)
-        ts = ts._replace(
-            obs=_zero_where_bad(finite, ts.obs),
-            reward=_zero_where_bad(finite, ts.reward),
-            truncated=ts.truncated | ~finite,
-            info=tree_map(lambda x: _zero_where_bad(finite, x), ts.info),
-        )
-        done = ts.done
+            # NaN watchdog over every body plane, every float aux plane and the
+            # emitted reward and obs: a flagged world is truncated (and so
+            # reset) the step the NaN appears, and its emissions are zeroed
+            with named("px.watchdog"):
+                finite = torch.isfinite(ts.reward)
+                for leaf in list(s) + [
+                    x for x in tree_leaves(aux) if torch.is_tensor(x) and x.is_floating_point()
+                ]:
+                    finite = finite & _finite_per_world(leaf)
+                finite = finite & torch.isfinite(ts.obs).reshape(ts.obs.shape[0], -1).all(1)
+                ts = ts._replace(
+                    obs=_zero_where_bad(finite, ts.obs),
+                    reward=_zero_where_bad(finite, ts.reward),
+                    truncated=ts.truncated | ~finite,
+                    info=tree_map(lambda x: _zero_where_bad(finite, x), ts.info),
+                )
+            done = ts.done
 
-        # in-graph auto-reset; key tree split(key) -> (reset, carry)
-        keys = prng.split(ps.key)  # [B, 2, 2]
-        rkeys, carry_keys = keys[:, 0], keys[:, 1]
-        fresh_s, fresh_aux = self.plane_fresh(rkeys)
-        out = PlaneState(
-            s=_where_done(done, fresh_s, s),
-            aux=_where_done(done, fresh_aux, aux),
-            t=torch.where(done, 0, t_new),
-            key=carry_keys,
-        )
-        return out, ts
+            # in-graph auto-reset; key tree split(key) -> (reset, carry)
+            with named("px.reset"):
+                keys = prng.split(ps.key)  # [B, 2, 2]
+                rkeys, carry_keys = keys[:, 0], keys[:, 1]
+                fresh_s, fresh_aux = self.plane_fresh(rkeys)
+                out = PlaneState(
+                    s=_where_done(done, fresh_s, s),
+                    aux=_where_done(done, fresh_aux, aux),
+                    t=torch.where(done, 0, t_new),
+                    key=carry_keys,
+                )
+            return out, ts
 
     def reset_batch(self, keys):
         return self.reset_fn_batch(keys)
@@ -188,9 +193,10 @@ class PlaneEnvMixin:
         unchanged and ``truncated`` the step limit alone.  The hook that
         ``BatchedEnvironmentMixin.step_batch`` builds on in the JAX package;
         a world that ``physics_core`` does not run raises ``ValueError``."""
-        ps = self._to_planes(states)
-        s, aux, t_new, ts = self._plane_step(ps, actions)
-        return self.plane_make_state(_from_soa(s), aux, t_new, ps.key), ts
+        with named("px.step"):
+            ps = self._to_planes(states)
+            s, aux, t_new, ts = self._plane_step(ps, actions)
+            return self.plane_make_state(_from_soa(s), aux, t_new, ps.key), ts
 
     def rollout_batch(self, states, policy_fn, n_steps, policy_params=None,
                       max_chunk=None, mesh=None, remat_steps=False,
@@ -216,20 +222,22 @@ class PlaneEnvMixin:
 
         def step(ps):
             obs = self.plane_obs(ps.s, ps.aux)
-            actions = policy_fn(policy_params, obs)
+            with named("px.policy"):
+                actions = policy_fn(policy_params, obs)
             ps, ts = self._step_planes(ps, actions)
             return ps, traj_select(ts) if traj_select else ts
 
         def one_wave(chunk_states):
-            ps = self._to_planes(chunk_states)
-            traj = []
-            for _ in range(n_steps):
-                if remat_steps:
-                    ps, out = checkpoint(step, ps, use_reentrant=False)
-                else:
-                    ps, out = step(ps)
-                traj.append(out)
-            stacked = tree_map(lambda *xs: torch.stack(xs), *traj)
-            return self._from_planes(ps), stacked
+            with named("px.rollout"):
+                ps = self._to_planes(chunk_states)
+                traj = []
+                for _ in range(n_steps):
+                    if remat_steps:
+                        ps, out = checkpoint(step, ps, use_reentrant=False)
+                    else:
+                        ps, out = step(ps)
+                    traj.append(out)
+                stacked = tree_map(lambda *xs: torch.stack(xs), *traj)
+                return self._from_planes(ps), stacked
 
         return chunked_rollout(one_wave, states, n_steps, states.t.shape[0], max_chunk, mesh)

@@ -23,6 +23,7 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from parallax_tpu_torch.parallel.mesh import WORLD_AXIS, axis_group, mesh_axis
+from parallax_tpu_torch.utils.profiling import named
 from parallax_tpu_torch.utils.pytree import tree_map
 
 # World-batch size of one rollout wave: larger fleets run as sequential
@@ -251,16 +252,19 @@ def make_train_step(env, policy_fn: Callable, optimizer: torch.optim.Optimizer,
 
     def train_step(params, states):
         optimizer.zero_grad(set_to_none=True)
-        loss, (final, mean_ret) = loss_fn(params, states)
-        if loss.requires_grad:
-            loss.backward()
-        for p in params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        loss, mean_ret = loss.detach(), mean_ret.detach()
-        if mesh is not None:
-            loss, mean_ret = _mean_over_ranks(params, loss, mean_ret, mesh)
-        optimizer.step()
+        with named("px.train.forward"):
+            loss, (final, mean_ret) = loss_fn(params, states)
+        with named("px.train.backward"):
+            if loss.requires_grad:
+                loss.backward()
+        with named("px.train.update"):
+            for p in params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            loss, mean_ret = loss.detach(), mean_ret.detach()
+            if mesh is not None:
+                loss, mean_ret = _mean_over_ranks(params, loss, mean_ret, mesh)
+            optimizer.step()
         final = tree_map(torch.Tensor.detach, final)
         return params, final, {"loss": loss, "mean_return": mean_ret}
 

@@ -14,8 +14,8 @@ profiling}.py`` and ``viz.py``) on the CPU, the models being
   counted and held to at most 16 of 76,800 (a vertex a float32 rounding
   apart would land a boundary pixel on the other side; a CPU run found
   none); the rasterizer's bbox and clamping cases;
-* ``steps_per_second`` and ``trace`` (a Chrome trace with the ``named``
-  region in it);
+* ``trace`` (a Chrome trace with a ``named`` region and the program's own
+  spans in it; ``named`` is a no-op outside it);
 * ``dbc``: raising checks, pre/post conditions and invariants, free when
   off; in fleet mode one poisoned world of B=8 is truncated and reset by
   the env's watchdog while the others step on, and the violation is
@@ -155,16 +155,19 @@ def test_renderer_matches_jax_renderer():
     assert g.max() == 0
 
 
-def test_steps_per_second_and_trace(tmp_path):
+def test_trace_writes_the_named_spans(tmp_path):
     x = torch.ones(128)
-    assert profiling.steps_per_second(lambda v: v * 2.0, x, steps_per_call=10, repeats=2) > 0
+    env = Bouncer(device="cpu")
+    states = env.reset_fn_batch(port_keys(keys_np(2, 5)))
     d = str(tmp_path / "prof")
     with profiling.trace(d) as prof:
         with profiling.named("hot_section"):
             torch.sin(x) * 2.0
+        env.step_batch(states, torch.zeros((2, env.action_size)))
+    assert not isinstance(profiling.named("hot_section"), torch.profiler.record_function)
     with open(os.path.join(d, "trace.json")) as fh:
-        events = json.load(fh)["traceEvents"]
-    assert any(e.get("name") == "hot_section" for e in events)
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert {"hot_section", "px.step", "px.physics", "px.watchdog", "px.reset"} <= names
     assert any(e.key == "hot_section" for e in prof.key_averages())
 
 
