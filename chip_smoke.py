@@ -64,7 +64,11 @@ All four kernels run one warp per world, several worlds a block
 across two launches and across plans of 2, 4 and 8 worlds a block, times
 each plan on the crate pile, and holds them to their plain versions on a
 ragged batch (B - 1 worlds) and, for the solver's two, on billiards48 (52
-bodies, more than a warp's threads; 1,320 lanes).
+bodies, more than a warp's threads; 1,320 lanes).  Phase 3 also holds the
+auto-reset draw's three kernels (``ops/threefry.py``: threefry's split and
+uniform draws, the lander's terrain sampler) to the bit against their
+torch bodies at the fleet's batch of 32,768, and times them; the rollouts
+of phases 4 and 5b count their launches.
 
 It prints the card's name and power limit, the timings, one JSON line of
 per-kernel results and, last, one JSON line ``{"ok": true, "device":
@@ -126,6 +130,20 @@ def gpu_line():
 def keys_for(batch, seed, device):
     k = np.random.default_rng(seed).integers(0, 2**32, (batch, 2), dtype=np.uint32)
     return torch.from_numpy(k.astype(np.int64)).to(device)
+
+
+def zero_draws():
+    """Set the threefry kernels' launch counters to 0."""
+    from parallax_tpu_torch.ops import threefry
+
+    threefry.split_launches = threefry.uniform_launches = threefry.terrain_launches = 0
+
+
+def draws():
+    """``(split, uniform, terrain)`` launches of the threefry kernels."""
+    from parallax_tpu_torch.ops import threefry
+
+    return threefry.split_launches, threefry.uniform_launches, threefry.terrain_launches
 
 
 def policy_params(device):
@@ -310,7 +328,7 @@ def circle_worlds(env_b, gpu):
     """Phase 5b: the circle worlds' paths at B, each with its launches,
     env-steps/s, peak memory and the time of its layers, then billiards8
     card against CPU.  Returns ``{path: (env-steps/s, (solver, fused
-    launches), peak GiB)}``; what the paths allocate is freed on return, so
+    launches), peak GiB, (split, uniform, terrain) threefry launches)}``; what the paths allocate is freed on return, so
     later peaks do not count it."""
     from parallax_tpu_torch.engine.batched import collide_batched
     from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
@@ -335,23 +353,30 @@ def circle_worlds(env_b, gpu):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         contact_solver.launches = fused_step.launches = 0
+        zero_draws()
         t0 = time.perf_counter()
         _, tr = e.rollout_batch(st, circle_policy, CIRCLE_STEPS, cp)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        counts = (contact_solver.launches, fused_step.launches)
+        counts, drawn = (contact_solver.launches, fused_step.launches), draws()
         want_counts = (CIRCLE_STEPS, 0) if kind == "split" else (0, CIRCLE_STEPS)
         check(counts == want_counts, f"{label}: launches (solver, fused) {counts}, want {want_counts}")
+        # a step's draw: the plane loop's key split, and billiards' split and
+        # rack jitter in plane_fresh (the bouncer's draws nothing)
+        want_drawn = ((CIRCLE_STEPS, 0, 0) if label.startswith("bouncer")
+                      else (2 * CIRCLE_STEPS, CIRCLE_STEPS, 0))
+        check(drawn == want_drawn, f"{label}: threefry launches (split, uniform, terrain) "
+              f"{drawn}, want {want_drawn}")
         check(tuple(tr.obs.shape) == (CIRCLE_STEPS, B, e.observation_size),
               f"{label}: obs shape {tuple(tr.obs.shape)}")
         check(torch.isfinite(tr.obs).all().item() and torch.isfinite(tr.reward).all().item(),
               f"{label}: non-finite obs or reward")
         peak = torch.cuda.max_memory_allocated() / 2**30
-        circle[label] = (B * CIRCLE_STEPS / sec, counts, peak)
+        circle[label] = (B * CIRCLE_STEPS / sec, counts, peak, drawn)
         print(f"[main] {label} rollout_batch B={B} x {CIRCLE_STEPS} steps ({e.world.n_bodies} "
               f"bodies, C={e.world.table.n_contacts}): launches solver {counts[0]}, fused "
-              f"{counts[1]}, {B * CIRCLE_STEPS / sec:.1f} env-steps/s, peak memory {peak:.2f} "
-              f"GiB, on {gpu}")
+              f"{counts[1]}, threefry split {drawn[0]} uniform {drawn[1]}, "
+              f"{B * CIRCLE_STEPS / sec:.1f} env-steps/s, peak memory {peak:.2f} GiB, on {gpu}")
         # where a step's time goes: the step, and the layers it calls
         ps = e._to_planes(st)
         acts = circle_policy(cp, e.plane_obs(ps.s, ps.aux))
@@ -1433,6 +1458,100 @@ def large_worlds(gpu):
     out["billiards48"]["bwd"].update(launches=counts[3], ms=bms, plain_ms=bplain_ms,
                                      bound_ms=bbound, bound_by=bby, grad_s=sec)
     return out
+
+
+FLEET_B = 32768  # the benchmark's fleet: the threefry kernels at the main path's batch
+# int32 operations of a threefry2x32 hash: 20 rounds of add, rotate and
+# xor, 6 key injections of 2 adds, the third key word's 2 xors
+HASH_OPS = 20 * 3 + 6 * 2 + 2
+INT32_OPS = 64 * 132 * 1.98e9  # H100 SXM: 64 int32 lanes an SM, 132 SMs, 1.98 GHz
+
+
+def threefry_phase(gpu):
+    """Phase 3 on the auto-reset draw's kernels (``ops/threefry.py``) at the
+    fleet's batch FLEET_B, on the keys as the plane loop hands them on (a
+    split's slice, row stride 4): the split kernel as ``prng.split`` and
+    ``prng.fold_in``, the uniform kernel as billiards48's jitter
+    ``prng.uniform(keys, (47, 2), -0.002, 0.002)`` and as ``random_bits``,
+    and the terrain kernel as the lander's ``terrain_planes_batch`` with its
+    first split.  Each call is one launch and equal to the bit to its torch
+    body run on the card.  The first draw of each kernel is then timed in
+    turns with its torch body (CUDA events; a call back to back is paced by
+    the host's launch), its device time read from the profiler (the mean of
+    the kernel's own events over 20 calls) and its bound computed (bytes at
+    HBM_BPS, int32 operations at INT32_OPS).  Returns ``{kernel: entry}``."""
+    from parallax_tpu_torch.envs.lunar_lander import terrain_planes_batch, terrain_planes_plain
+    from parallax_tpu_torch.geometry.shapes import MAX_VERTS
+    from parallax_tpu_torch.ops import threefry
+    from parallax_tpu_torch.utils import prng
+
+    Bf = FLEET_B
+    keys = prng.split(keys_for(Bf, 20, "cuda"))[:, 1]
+    check(keys.stride() == (4, 1), f"threefry phase: key strides {keys.stride()}")
+    # kernel -> (its counter, [(draw, kernel call, torch body, hashes, bytes
+    # read and written)]); the first draw is the one timed
+    cases_of = {
+        "threefry_split": ("split_launches", [
+            ("split", lambda: prng.split(keys), lambda: prng.split_plain(keys),
+             2 * Bf, 16 * Bf + 32 * Bf),
+            ("fold_in", lambda: prng.fold_in(keys, 0x501E),
+             lambda: prng.fold_in_plain(keys, 0x501E), Bf, 16 * Bf + 16 * Bf),
+        ]),
+        "threefry_uniform": ("uniform_launches", [
+            ("uniform (47, 2)", lambda: prng.uniform(keys, (47, 2), -0.002, 0.002),
+             lambda: prng.uniform_plain(keys, (47, 2), -0.002, 0.002),
+             94 * Bf, 16 * Bf + 4 * 94 * Bf),
+            ("random_bits (47, 2)", lambda: prng.random_bits(keys, (47, 2)),
+             lambda: prng.random_bits_plain(keys, (47, 2)), 94 * Bf, 16 * Bf + 8 * 94 * Bf),
+        ]),
+        "lander_terrain": ("terrain_launches", [
+            ("terrain, first split", lambda: terrain_planes_batch(keys, True),
+             lambda: terrain_planes_plain(keys, True),
+             18 * Bf, 16 * Bf + 2 * 4 * 7 * MAX_VERTS * Bf),
+        ]),
+    }
+    out = {}
+    for kernel, (counter, cases) in cases_of.items():
+        for label, fn, plain, hashes, nbytes in cases:
+            n0 = getattr(threefry, counter)
+            got = fn()
+            check(getattr(threefry, counter) == n0 + 1, f"{kernel} ({label}): not one launch")
+            want = plain()
+            torch.cuda.synchronize()
+            got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+            check(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{kernel} ({label}) vs its torch body at B={Bf}: the bits differ")
+            print(f"[kernel] {kernel} ({label}) vs its torch body at B={Bf} (keys row stride 4): "
+                  "one launch, equal to the bit")
+        label, fn, plain, hashes, nbytes = cases[0]
+        ms, plain_ms, t = turns(fn, plain, 20)
+        count, dev_ms = kernel_device_ms(fn, kernel, 20)
+        check(count > 0, f"{kernel}: the profiler saw none of its 20 launches")
+        ops = hashes * HASH_OPS
+        by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / INT32_OPS * 1e3
+        bound, by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "int32 operations")
+        print(f"[time] {kernel} ({label}) per call at B={Bf}: kernel {ms:.4f} ms back to back, "
+              f"{dev_ms:.4f} ms on the device ({count} of 20 launches seen), plain torch {plain_ms:.4f} ms (turns "
+              f"{[round(x, 4) for x in t]}); bound {bound:.5f} ms ({by}; {nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e6:.1f} M int32 operations) on {gpu}")
+        out[kernel] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+                       "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def kernel_device_ms(fn, kernel, reps):
+    """``(events, mean device ms an event)`` of the device kernel whose
+    name holds ``kernel``, over ``reps`` calls of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if kernel in e.key and getattr(e, "device_time_total", 0.0) > 0]
+    count = sum(e.count for e in ev)
+    return count, sum(e.device_time_total for e in ev) / 1e3 / max(count, 1)
 
 
 def device_kernels(fn):
@@ -3074,6 +3193,8 @@ def main():
 
     solves = circle_solves(gpu)
     max_err = max([max_err] + [v["max_abs_err"] for v in solves.values()])
+    lap("phase 3 on the threefry kernels starts")
+    tf = threefry_phase(gpu)
     lap("phase 3 on RoboCup starts")
     rc = robocup_kernels(env_b, gpu)
     lap("phase 3 on the crate pile starts")
@@ -3099,18 +3220,22 @@ def main():
     torch.cuda.synchronize()
     contact_solver.launches = 0
     contact_solver.bwd_launches = 0
+    zero_draws()
     t0 = time.perf_counter()
     final, traj = env.rollout_batch(states, policy, STEPS, params)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = contact_solver.launches
+    launches, drawn = contact_solver.launches, draws()
     check(launches == STEPS, f"kernel launched {launches} times in {STEPS} steps")
+    # a step's draw: the plane loop's key split and plane_fresh's terrain
+    check(drawn == (STEPS, 0, STEPS),
+          f"threefry launches (split, uniform, terrain) {drawn} in {STEPS} steps")
     check(contact_solver.bwd_launches == 0, "a forward rollout launched the reverse pass")
     check(torch.isfinite(traj.obs).all().item(), "non-finite obs")
     check(torch.isfinite(traj.reward).all().item(), "non-finite reward")
     check(tuple(traj.obs.shape) == (STEPS, B, 9), f"obs shape {tuple(traj.obs.shape)}")
-    print(f"[main] rollout_batch B={B} x {STEPS} steps: kernel launches {launches}, "
-          f"obs/reward finite, {main_s:.2f} s wall")
+    print(f"[main] rollout_batch B={B} x {STEPS} steps: kernel launches {launches}, threefry "
+          f"split {drawn[0]} terrain {drawn[2]}, obs/reward finite, {main_s:.2f} s wall")
 
     st = lowered(env.reset_fn_batch(keys_for(B, 2, dev)), dev)
     _, traj2 = env.rollout_batch(st, zero_policy, 100)
@@ -3142,11 +3267,14 @@ def main():
     torch.cuda.synchronize()
     fused_step.launches = 0
     contact_solver.launches = 0
+    zero_draws()
     t0 = time.perf_counter()
     _, traj_f = env_f.rollout_batch(st, policy, STEPS, params)
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
-    fused_launches, f_solver = fused_step.launches, contact_solver.launches
+    fused_launches, f_solver, f_drawn = fused_step.launches, contact_solver.launches, draws()
+    check(f_drawn == (STEPS, 0, STEPS),
+          f"fused rollout: threefry launches (split, uniform, terrain) {f_drawn} in {STEPS} steps")
     check(fused_launches == STEPS, f"fused kernel launched {fused_launches} times in {STEPS} steps")
     check(f_solver == 0, f"the fused rollout launched the solver kernel {f_solver} times")
     check(torch.isfinite(traj_f.obs).all().item(), "fused rollout: non-finite obs")
@@ -3155,7 +3283,8 @@ def main():
     f_terms = int(traj_f.terminated.sum())
     check(f_legs > 0 and f_terms > 0, f"fused rollout: {f_legs} leg contacts, {f_terms} terminations")
     print(f"[main] fused rollout_batch B={B} x {STEPS} steps (lowered start): fused launches "
-          f"{fused_launches}, solver launches {f_solver}, obs/reward finite, {f_legs} "
+          f"{fused_launches}, solver launches {f_solver}, threefry split {f_drawn[0]} terrain "
+          f"{f_drawn[2]}, obs/reward finite, {f_legs} "
           f"leg-contact flags, {f_terms} terminations, {fused_s:.2f} s wall")
 
     env_f_cpu = LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True), device="cpu")
@@ -3453,6 +3582,15 @@ def main():
             "candidates": cand["fused_step_bwd"],
             **plans["fused_step_bwd"],
         },
+        # the auto-reset draw's kernels, launched by the lander's two
+        # rollouts (phase 4) and the circle worlds' (phase 5b), and checked
+        # at the fleet's batch (phase 3, threefry_phase)
+        *({"name": k, "route": "cuda", "source": f"parallax_tpu_torch/csrc/{src}",
+           "replaces": None, "launches": drawn[i] + f_drawn[i]
+           + sum(c[3][i] for c in circle.values()), **tf[k], "library_ms": None}
+          for i, (k, src) in enumerate((("threefry_split", "threefry.cu"),
+                                        ("threefry_uniform", "threefry.cu"),
+                                        ("lander_terrain", "lander_terrain.cu")))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -44,6 +44,7 @@ from parallax_tpu_torch.envs.base import BatchedEnvironmentMixin, Environment, J
 from parallax_tpu_torch.envs.plane_env import PlaneEnvMixin, init_planes_of
 from parallax_tpu_torch.geometry.math import _abs_j, rotate, safe_norm
 from parallax_tpu_torch.geometry.shapes import MAX_VERTS, polygon
+from parallax_tpu_torch.ops import threefry
 from parallax_tpu_torch.utils import prng
 from parallax_tpu_torch.utils.device import resolve as resolve_device
 
@@ -146,21 +147,34 @@ def _pseudo_angle(dx, dy):
     return torch.where(dx >= 0.0, p, torch.where(dy >= 0.0, 2.0 - p, -2.0 - p))
 
 
-def terrain_planes_batch(keys):
+def terrain_planes_batch(keys, split_first=False):
     """Batch-minor terrain sampler: ``keys`` ``[B, 2]`` -> ``(qx, qy)``
     ``[7, V, B]`` world-frame planes, bit-identical to the JAX package's
     for the same keys (same key splits and draws; the clockwise order as a
-    stable 4-element sorting network on the same pseudo-angle key)."""
+    stable 4-element sorting network on the same pseudo-angle key).
+    ``split_first`` draws each world's terrain from ``split(key)[0]``, as
+    the auto-reset does.  On CUDA keys the whole draw is one kernel
+    (``ops/threefry.py:lander_terrain``), on CPU keys its plain version,
+    :func:`terrain_planes_plain`."""
+    if keys.is_cuda:
+        return threefry.lander_terrain(keys, split_first, MAX_VERTS)
+    return terrain_planes_plain(keys, split_first)
+
+
+def terrain_planes_plain(keys, split_first=False):
+    """:func:`terrain_planes_batch`'s torch body, on any device."""
+    if split_first:
+        keys = prng.split_plain(keys)[:, 0]
     B = keys.shape[0]
-    ks = prng.split(keys, 5)  # [B, 5, 2]
-    heights = prng.uniform(ks[:, 0], (8,), -5.0, 5.0).T.contiguous()  # [8, B]
+    ks = prng.split_plain(keys, 5)  # [B, 5, 2]
+    heights = prng.uniform_plain(ks[:, 0], (8,), -5.0, 5.0).T.contiguous()  # [8, B]
     heights[0] = heights[0] * 10.0
     heights[3] = -2.0
     heights[4] = -2.0
     heights[7] = heights[7] * 10.0
 
     def u(i, lo, hi):
-        return prng.uniform(ks[:, i], (), lo, hi)
+        return prng.uniform_plain(ks[:, i], (), lo, hi)
 
     ones = torch.ones(B, dtype=torch.float32, device=keys.device)
     positions = torch.stack(
@@ -739,8 +753,7 @@ class LunarLander(PlaneEnvMixin, BatchedEnvironmentMixin, Environment):
         return s, aux, reward, terminated, info
 
     def plane_fresh(self, rkeys):
-        tkeys = prng.split(rkeys)[:, 0]
-        ftox, ftoy = terrain_planes_batch(tkeys)
+        ftox, ftoy = terrain_planes_batch(rkeys, split_first=True)
         # fresh prev_shaping for reset worlds (no leg contact at spawn)
         return self._init_planes, LanderAux(
             tox=ftox, toy=ftoy, prev_shaping=self._init_shaping, lc=0.0

@@ -112,6 +112,9 @@ def build() -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_U = ctypes.c_uint
+_D = ctypes.c_double
 
 _SIGNATURES = {
     "contact_solve_fwd": (
@@ -169,6 +172,12 @@ _SIGNATURES = {
         + [_I] * 3  # has_max_bias, pair_rows, worlds_per_block
         + [_P]  # stream
     ),
+    # keys, row stride, N, num, first, out, stream
+    "threefry_split": [_P, _L, _L, _I, _U, _P, _P],
+    # keys, row stride, N, n, lo, span, raw, out, stream
+    "threefry_uniform": [_P, _L, _L, _L, _D, _D, _I, _P, _P],
+    # keys, row stride, B, split_first, V, tox, toy, stream
+    "lander_terrain": [_P, _L, _I, _I, _I, _P, _P, _P],
     "contact_solver_num_fields": [],
     "contact_solver_fwd_smem_bytes": [_I] * 3,  # C, n, fields_in_smem
     "fused_step_fwd_smem_bytes": [_I] * 4,  # C, n, P, fields_in_smem

@@ -14,12 +14,20 @@ the draws the per-world random solvers consume: ``bernoulli``,
 Keys are int64 tensors ``[..., 2]`` holding uint32 values: torch's uint32
 type lacks shifts on every device, so the arithmetic runs in int64 and is
 masked back to 32 bits after each add and rotate.
+
+On CUDA key tensors ``split``, ``fold_in``, ``random_bits`` and ``uniform``
+(and so the draws built on it) launch ``ops/threefry.py``'s kernels, one
+launch each, with the same bits.  Their torch bodies are the plain
+versions (``split_plain``, ``fold_in_plain``, ``random_bits_plain``,
+``uniform_plain``) and run on CPU tensors.  The device is the only switch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from parallax_tpu_torch.ops import threefry
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -53,6 +61,13 @@ def _counters(n: int, like):
 
 def split(keys, num: int = 2):
     """``jax.random.split`` over a batch: ``[..., 2]`` -> ``[..., num, 2]``."""
+    if keys.is_cuda:
+        return threefry.split(keys, num)
+    return split_plain(keys, num)
+
+
+def split_plain(keys, num: int = 2):
+    """:func:`split`'s torch body, on any device: the kernel's plain version."""
     hi, lo = _counters(num, keys)
     b1, b2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], hi, lo)
     return torch.stack([b1, b2], dim=-1)
@@ -62,6 +77,13 @@ def fold_in(keys, data: int):
     """``jax.random.fold_in`` over a batch: ``[..., 2]`` keys and one
     uint32 ``data`` -> ``[..., 2]``, the threefry hash of the counters
     ``(0, data)`` (jax's ``threefry_seed(data)``) under each key."""
+    if keys.is_cuda:
+        return threefry.split(keys, 1, data)[..., 0, :]
+    return fold_in_plain(keys, data)
+
+
+def fold_in_plain(keys, data: int):
+    """:func:`fold_in`'s torch body, on any device."""
     k1, k2 = keys[..., 0], keys[..., 1]
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(k1), torch.full_like(k1, int(data) & _MASK))
     return torch.stack([b1, b2], dim=-1)
@@ -69,6 +91,13 @@ def fold_in(keys, data: int):
 
 def random_bits(keys, shape: tuple = ()):
     """``jax.random.bits`` (32-bit) over a batch: ``[..., 2]`` -> ``[..., *shape]``."""
+    if keys.is_cuda:
+        return threefry.random_bits(keys, shape)
+    return random_bits_plain(keys, shape)
+
+
+def random_bits_plain(keys, shape: tuple = ()):
+    """:func:`random_bits`' torch body, on any device."""
     n = 1
     for d in shape:
         n *= d
@@ -87,12 +116,23 @@ def uniform(keys, shape: tuple = (), minval: float = 0.0, maxval: float = 1.0):
     whenever the double result is exact, which holds for bounds that are
     small integers, like every draw of the lander's terrain.
     """
-    bits = random_bits(keys, shape)
+    if keys.is_cuda:
+        return threefry.uniform(keys, shape, *_bounds(minval, maxval))
+    return uniform_plain(keys, shape, minval, maxval)
+
+
+def _bounds(minval, maxval):
+    """``(lo, span)``: the bounds as float32 values and their float32
+    difference, kept on the host (no device copies)."""
+    return float(np.float32(minval)), float(np.float32(maxval) - np.float32(minval))
+
+
+def uniform_plain(keys, shape: tuple = (), minval: float = 0.0, maxval: float = 1.0):
+    """:func:`uniform`'s torch body, on any device."""
+    bits = random_bits_plain(keys, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
-    # the bounds as float32 values, kept on the host (no device copies)
-    lo = float(np.float32(minval))
-    span = float(np.float32(maxval) - np.float32(minval))
+    lo, span = _bounds(minval, maxval)
     return torch.clamp((floats.double() * span + lo).float(), min=lo)
 
 

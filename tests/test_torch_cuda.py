@@ -8,6 +8,8 @@ jax nor the JAX package, so on the GPU machine it runs with
 (``--noconftest``: the suite's conftest sets up jax's CPU platform).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -36,10 +38,17 @@ from torch_scenarios import (
 
 from parallax_tpu_torch.engine import batched as tb
 from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
-from parallax_tpu_torch.envs.lunar_lander import LanderConfig, LunarLander
+from parallax_tpu_torch.envs.lunar_lander import (
+    MAX_VERTS,
+    LanderConfig,
+    LunarLander,
+    terrain_planes_batch,
+    terrain_planes_plain,
+)
 from parallax_tpu_torch.envs.robocup import RoboCup, RoboCupConfig
-from parallax_tpu_torch.ops import contact_solver, fused_step
+from parallax_tpu_torch.ops import contact_solver, fused_step, threefry
 from parallax_tpu_torch.parallel import rollout
+from parallax_tpu_torch.utils import prng
 
 ATOL = 1e-5  # kernel vs plain version: float32 rounding and sum order
 RTOL = 2e-4  # the reverse pass: the JAX package's bar for its Pallas backward
@@ -896,3 +905,110 @@ def test_candidate_world_kernels_match_plain_versions_on_card(kernel):
     for x, y in zip(got, want):
         assert torch.isfinite(x).all()
         torch.testing.assert_close(x, y, rtol=RTOL if kernel.endswith("bwd") else 0, atol=ATOL)
+
+
+def _edge_keys(B, seed):
+    """``_keys`` with the edge words first: 0 and 0xFFFFFFFF, in both words
+    and in one."""
+    k = _keys(B, seed)
+    k[:4] = torch.tensor([[0, 0], [2**32 - 1, 2**32 - 1], [0, 2**32 - 1], [2**32 - 1, 0]])
+    return k
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+@pytest.mark.cuda
+def test_threefry_kernels_match_torch_bodies_on_card(card):
+    """``prng.split``, ``fold_in``, ``random_bits`` and ``uniform`` on CUDA keys
+    launch ``csrc/threefry.cu``, one launch a call, and give the bits of
+    their torch bodies run on the card, and of the CPU path copied back, at
+    B=32,768 (billiards48's jitter, ``uniform(keys, (47, 2))``, included),
+    on contiguous keys and on a split's ``[:, 0]`` slice (row stride 4)."""
+    def one_launch(counter, draw, *args):
+        n0 = getattr(threefry, counter)
+        out = draw(*args)
+        assert getattr(threefry, counter) == n0 + 1, (draw.__name__, args[1:])
+        return out
+
+    keys = _edge_keys(32768, 20)
+    bounds = ((-5.0, 5.0), (-0.002, 0.002), (0.0, 2 * math.pi), (_TINY, 1.0))
+    for k in (keys, prng.split_plain(keys)[:, 0]):
+        assert k.is_cuda and k.stride() == ((2, 1) if k is keys else (4, 1))
+        kc = k.cpu()
+        for num in (2, 5):
+            got = one_launch("split_launches", prng.split, k, num)
+            assert torch.equal(got, prng.split_plain(k, num))
+            assert torch.equal(got.cpu(), prng.split(kc, num))
+        got = one_launch("split_launches", prng.fold_in, k, 0x501E)
+        assert torch.equal(got, prng.fold_in_plain(k, 0x501E))
+        assert torch.equal(got.cpu(), prng.fold_in(kc, 0x501E))
+        for shape in ((), (8,), (47, 2)):
+            got = one_launch("uniform_launches", prng.random_bits, k, shape)
+            assert torch.equal(got, prng.random_bits_plain(k, shape))
+            for lo, hi in bounds:
+                got = one_launch("uniform_launches", prng.uniform, k, shape, lo, hi)
+                assert got.dtype == torch.float32 and got.shape == (32768, *shape)
+                assert torch.equal(got, prng.uniform_plain(k, shape, lo, hi)), (shape, lo)
+                assert torch.equal(got.cpu(), prng.uniform(kc, shape, lo, hi)), (shape, lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_first", [False, True])
+def test_lander_terrain_kernel_matches_torch_body_on_card(card, split_first):
+    """The terrain kernel (``csrc/lander_terrain.cu``) against
+    ``terrain_planes_plain`` run on the card,
+    over 2**20 keys, so that a centre summed in another order than torch's
+    or a sorting-network tie broken otherwise would show; its first 4,096
+    worlds against the CPU path too."""
+    keys = _edge_keys(2**20, 21)
+    n0 = threefry.terrain_launches
+    got = terrain_planes_batch(keys, split_first)
+    assert threefry.terrain_launches == n0 + 1
+    want = terrain_planes_plain(keys, split_first)
+    cpu = terrain_planes_batch(keys[:4096].cpu(), split_first)
+    for g, w, c in zip(got, want, cpu):
+        assert g.shape == (7, MAX_VERTS, 2**20) and g.is_contiguous()
+        assert torch.equal(g, w)
+        assert torch.equal(g[..., :4096].cpu(), c)
+
+
+@pytest.mark.cuda
+def test_plane_steps_launch_one_draw_on_card(fused_env):
+    """One fleet step's auto-reset draw: the fused lander's launches the split
+    kernel once (the plane loop's key split) and the terrain kernel once
+    (``plane_fresh``'s split and sampler), billiards48's the split kernel
+    twice (the plane loop's, ``plane_fresh``'s) and the uniform kernel once
+    (the rack jitter)."""
+    def launches():
+        return (threefry.split_launches, threefry.uniform_launches, threefry.terrain_launches)
+
+    billiards = Billiards(BilliardsConfig(n_object=47), device="cuda")
+    for env, want in ((fused_env, (1, 0, 1)), (billiards, (2, 1, 0))):
+        st = env.reset_fn_batch(_keys(256, 22))
+        before = launches()
+        env.step_batch(st, torch.zeros((256, env.action_size), device="cuda"))
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(launches(), before)) == want, type(env).__name__
+
+
+@pytest.mark.cuda
+def test_threefry_refuses_bad_keys_on_card(card):
+    """A CUDA key tensor the kernels do not take raises, with no launch and
+    no torch fallback: int32 words, a key's words apart, leading axes that
+    are not rows of one stride, a last axis of 3, and terrain keys that
+    are not ``[B, 2]``."""
+    keys = _keys(64, 23)
+    before = (threefry.split_launches, threefry.uniform_launches, threefry.terrain_launches)
+    with pytest.raises(ValueError, match="int64"):
+        prng.split(keys.int())
+    with pytest.raises(ValueError, match="adjacent"):
+        prng.uniform(keys.T.contiguous().T, (8,))
+    with pytest.raises(ValueError, match="one stride"):
+        prng.random_bits(_keys(48, 23).reshape(4, 12, 2)[:, :6], (3,))
+    with pytest.raises(ValueError, match="int64"):
+        prng.fold_in(torch.zeros((64, 3), dtype=torch.int64, device="cuda"), 7)
+    with pytest.raises(ValueError, match=r"\[B, 2\]"):
+        terrain_planes_batch(keys.reshape(8, 8, 2))
+    assert (threefry.split_launches, threefry.uniform_launches,
+            threefry.terrain_launches) == before

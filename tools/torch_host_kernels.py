@@ -6,10 +6,10 @@
 The sources in ``parallax_tpu_torch/csrc`` compile with ``g++`` once a
 small shim header defines the CUDA keywords away (``__device__``,
 ``__global__``, ``__launch_bounds__``, ``threadIdx``, ``rsqrtf``,
-``__popc``), makes a warp one thread (``WARP_LANES`` 1, ``__syncwarp``
-and ``__syncthreads`` no-ops, a ballot or vote its one thread's
-predicate) and each ``<<<...>>>`` launch a loop over its blocks and
-their threads, in order; the dynamic shared memory of a block becomes a
+``__popc``, ``__uint_as_float`` and the ``_rn`` intrinsics), makes a
+warp one thread (``WARP_LANES`` 1, ``__syncwarp`` and ``__syncthreads``
+no-ops, a ballot or vote its one thread's predicate) and each
+``<<<...>>>`` launch a loop over its blocks and their threads, in order; the dynamic shared memory of a block becomes a
 host buffer, in which each world of the block has its own part.  The library goes to ``build/host_kernels/`` (or ``--out``) and is
 loaded in place of ``ops/_build.load()``; the wrappers then run the kernels
 on CPU tensors.  This checks a kernel's arithmetic before it reaches a
@@ -69,6 +69,15 @@ static inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 #define __popc __builtin_popcount
+#include <string.h>
+static inline float __uint_as_float(unsigned u) {
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+}
+#define __dmul_rn(a, b) ((a) * (b))
+#define __dadd_rn(a, b) ((a) + (b))
+#define __double2float_rn(x) ((float)(x))
 """
 FLOAT_MATH = "static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }\n"
 DOUBLE_MATH = """#define float double
