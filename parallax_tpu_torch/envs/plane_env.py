@@ -125,15 +125,19 @@ class PlaneEnvMixin:
         that ``_step_planes`` and ``step_fn_batch`` share.  Returns the
         stepped planes, aux and ``t`` and a ``TimeStep`` whose ``truncated``
         is the step limit alone."""
-        s = self.plane_pre(ps.s, ps.aux, actions)
+        with named("px.pre"):
+            s = self.plane_pre(ps.s, ps.aux, actions)
         with named("px.physics"):
             s, con = self.plane_physics(s, ps.aux)
         t_new = ps.t + 1
-        s, aux, reward, terminated, info = self.plane_post(
-            s, ps.aux, con, actions, t_new
-        )
+        with named("px.post"):
+            s, aux, reward, terminated, info = self.plane_post(
+                s, ps.aux, con, actions, t_new
+            )
+        with named("px.obs"):
+            obs = self.plane_obs(s, aux)
         ts = TimeStep(
-            obs=self.plane_obs(s, aux),
+            obs=obs,
             reward=reward,
             terminated=terminated,
             truncated=(t_new >= self.plane_max_steps) & ~terminated,

@@ -1,9 +1,11 @@
 """The port's spans (``utils/profiling.py:named``, ``spans``) on the CPU.
 
 * off by default: a profiled ``rollout_batch`` holds no ``px.`` event;
-* on: the rollout's, the step's, the policy's, the physics', the split
-  collide's, the watchdog's and the auto-reset's spans appear once a wave
-  or a step, on the lander and on a billiards step; a checkpointed train step
+* on: the rollout's, the step's, the policy's, the env hooks' (pre, post,
+  obs), the physics', the split collide's, the watchdog's and the
+  auto-reset's spans appear once a wave or a step, on the lander, on a
+  billiards step and on a RoboCup Division B fragment (the fused step's
+  plain version); a checkpointed train step
   shows its forward, backward and update once each, and the auto-reset's
   span again inside the backward's recompute;
 * the outputs with spans on equal those with spans off, to the bit;
@@ -18,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
 from parallax_tpu_torch.envs.lunar_lander import LunarLander
+from parallax_tpu_torch.envs.robocup import RoboCup, RoboCupConfig
 from parallax_tpu_torch.parallel.rollout import adam, make_train_step
 from parallax_tpu_torch.utils import profiling
 from parallax_tpu_torch.utils.pytree import tree_leaves
@@ -72,8 +75,9 @@ def test_rollout_spans_and_bits(lander):
     with profiling.spans():
         on, events = _profiled(lambda: _rollout(lander))
     counts = Counter(n for n, _, _ in events)
-    assert counts == {"px.rollout": 1, "px.step": STEPS, "px.policy": STEPS, "px.physics": STEPS,
-                      "px.collide": STEPS, "px.watchdog": STEPS, "px.reset": STEPS}
+    assert counts == {"px.rollout": 1, "px.step": STEPS, "px.policy": STEPS, "px.pre": STEPS,
+                      "px.physics": STEPS, "px.collide": STEPS, "px.post": STEPS,
+                      "px.obs": STEPS, "px.watchdog": STEPS, "px.reset": STEPS}
     (_, r0, r1), = [e for e in events if e[0] == "px.rollout"]
     assert all(r0 <= s and e <= r1 for _, s, e in events)
     for a, b in zip(tree_leaves(on), tree_leaves(off)):
@@ -88,12 +92,40 @@ def test_split_billiards_step_shows_the_collide():
     with profiling.spans():
         on, events = _profiled(lambda: env.step_batch(states, actions))
         raw, raw_events = _profiled(lambda: env.step_fn_batch(states, actions))
+    hooks = {"px.pre": 1, "px.post": 1, "px.obs": 1}
     assert Counter(n for n, _, _ in events) == {
-        "px.step": 1, "px.physics": 1, "px.collide": 1, "px.watchdog": 1, "px.reset": 1}
-    assert Counter(n for n, _, _ in raw_events) == {"px.step": 1, "px.physics": 1, "px.collide": 1}
+        "px.step": 1, "px.physics": 1, "px.collide": 1, "px.watchdog": 1, "px.reset": 1, **hooks}
+    assert Counter(n for n, _, _ in raw_events) == {
+        "px.step": 1, "px.physics": 1, "px.collide": 1, **hooks}
     for a, b in zip(tree_leaves(on), tree_leaves(off)):
         assert torch.equal(a, b)
     for a, b in zip(tree_leaves(raw), tree_leaves(env.step_fn_batch(states, actions))):
+        assert torch.equal(a, b)
+
+
+def test_robocup_division_b_fragment_spans_and_bits():
+    """Six robots a team on the fused step's plain version: the hooks' spans
+    nest inside each step's ``px.step``, and the fragment's every leaf is
+    the same with the spans on and off."""
+    env = RoboCup(RoboCupConfig(n_robots_per_team=6, use_cuda_fused=True), device="cpu")
+    start = env.reset_fn_batch(_keys(B, 7))
+    p = _params(env.observation_size, env.action_size)
+
+    def run():
+        return env.rollout_batch(start, _policy, STEPS, p)
+
+    off = run()
+    with profiling.spans():
+        on, events = _profiled(run)
+    counts = Counter(n for n, _, _ in events)
+    for name in ("px.step", "px.pre", "px.physics", "px.post", "px.obs", "px.watchdog",
+                 "px.reset", "px.policy"):
+        assert counts[name] == STEPS, name
+    steps = [(s, e) for n, s, e in events if n == "px.step"]
+    for n, s, e in events:
+        if n in ("px.pre", "px.post", "px.obs"):
+            assert any(s0 <= s and e <= e1 for s0, e1 in steps), n
+    for a, b in zip(tree_leaves(on), tree_leaves(off)):
         assert torch.equal(a, b)
 
 
