@@ -68,7 +68,10 @@ bodies, more than a warp's threads; 1,320 lanes).  Phase 3 also holds the
 auto-reset draw's three kernels (``ops/threefry.py``: threefry's split and
 uniform draws, the lander's terrain sampler) to the bit against their
 torch bodies at the fleet's batch of 32,768, and times them; the rollouts
-of phases 4 and 5b count their launches.
+of phases 4 and 5b count their launches.  Phase 4 runs the lander's two
+main rollouts again under ``torch.no_grad()``, as the benchmark's cells do,
+where the step is replayed from CUDA graphs: each equal to the eager
+rollout to the bit, its kernels counted from the profiler.
 
 It prints the card's name and power limit, the timings, one JSON line of
 per-kernel results and, last, one JSON line ``{"ok": true, "device":
@@ -1564,6 +1567,53 @@ def device_kernels(fn):
         torch.cuda.synchronize()
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def graphed_twin(label, env, states, pol, params, steps, eager):
+    """The rollout the benchmark's cells run, under ``torch.no_grad()`` on
+    the card: ``rollout_batch`` replays its step from CUDA graphs
+    (``envs/plane_env.py``).  A 2-step call warms up and captures the wave
+    shape; the ``steps``-step call from ``states`` then replays every step,
+    and must equal ``eager`` (the same call under autograd, the eager step)
+    to the bit.  The kernels' launch counters count the host's calls, which
+    a replay makes none of, so the replayed run's kernels are counted from
+    the profiler's kernel list.  Returns ``{kernel: launches}`` of the
+    replayed run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallax_tpu_torch.envs import plane_env
+    from parallax_tpu_torch.ops import contact_solver, fused_step
+    from parallax_tpu_torch.utils.pytree import tree_leaves
+
+    kernels = ("contact_solve_kernel", "fused_step_kernel", "threefry_split_kernel",
+               "threefry_uniform_kernel", "lander_terrain_kernel")
+    g0, e0 = plane_env.graph_steps, plane_env.eager_steps
+    with torch.no_grad():
+        env.rollout_batch(states, pol, 2, params)
+    check((plane_env.graph_steps - g0, plane_env.eager_steps - e0) == (1, 1),
+          f"{label}: the 2-step call ran {plane_env.graph_steps - g0} graph and "
+          f"{plane_env.eager_steps - e0} eager steps, want 1 and 1")
+    torch.cuda.synchronize()
+    contact_solver.launches = fused_step.launches = 0
+    zero_draws()
+    g0 = plane_env.graph_steps
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = env.rollout_batch(states, pol, steps, params)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    counts = {k: sum(k in n for n in names) for k in kernels}
+    host = (contact_solver.launches, fused_step.launches) + draws()
+    check(plane_env.graph_steps - g0 == steps,
+          f"{label}: {plane_env.graph_steps - g0} of {steps} steps replayed from a graph")
+    check(host == (0,) * 5, f"{label}: replayed steps made host launches {host}")
+    leaves = list(zip(tree_leaves(got), tree_leaves(eager)))
+    differ = [i for i, (x, y) in enumerate(leaves) if not torch.equal(x, y)]
+    check(not differ, f"{label}: graphed and eager rollouts differ in leaves {differ} "
+          f"of {len(leaves)}")
+    print(f"[main] {label} under no_grad (CUDA graphs), {steps} steps replayed: equal to the "
+          f"eager rollout to the bit ({len(leaves)} leaves); device kernels {counts}")
+    return counts
 
 
 def pair_view(world, contacts):
@@ -3236,9 +3286,15 @@ def main():
     check(tuple(traj.obs.shape) == (STEPS, B, 9), f"obs shape {tuple(traj.obs.shape)}")
     print(f"[main] rollout_batch B={B} x {STEPS} steps: kernel launches {launches}, threefry "
           f"split {drawn[0]} terrain {drawn[2]}, obs/reward finite, {main_s:.2f} s wall")
+    counts = graphed_twin("rollout_batch", env, states, policy, params, STEPS, (final, traj))
+    check(counts == {"contact_solve_kernel": STEPS, "fused_step_kernel": 0,
+                     "threefry_split_kernel": STEPS, "threefry_uniform_kernel": 0,
+                     "lander_terrain_kernel": STEPS},
+          f"graphed rollout: device kernels {counts} in {STEPS} steps")
 
     st = lowered(env.reset_fn_batch(keys_for(B, 2, dev)), dev)
-    _, traj2 = env.rollout_batch(st, zero_policy, 100)
+    with torch.no_grad():
+        _, traj2 = env.rollout_batch(st, zero_policy, 100)
     legs = int(traj2.info["leg_contacts"].sum())
     terms = int(traj2.terminated.sum())
     check(legs > 0 and terms > 0, f"lowered rollout: {legs} leg contacts, {terms} terminations")
@@ -3269,7 +3325,7 @@ def main():
     contact_solver.launches = 0
     zero_draws()
     t0 = time.perf_counter()
-    _, traj_f = env_f.rollout_batch(st, policy, STEPS, params)
+    final_f, traj_f = env_f.rollout_batch(st, policy, STEPS, params)
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
     fused_launches, f_solver, f_drawn = fused_step.launches, contact_solver.launches, draws()
@@ -3286,6 +3342,12 @@ def main():
           f"{fused_launches}, solver launches {f_solver}, threefry split {f_drawn[0]} terrain "
           f"{f_drawn[2]}, obs/reward finite, {f_legs} "
           f"leg-contact flags, {f_terms} terminations, {fused_s:.2f} s wall")
+    counts = graphed_twin("fused rollout_batch", env_f, st, policy, params, STEPS,
+                          (final_f, traj_f))
+    check(counts == {"contact_solve_kernel": 0, "fused_step_kernel": STEPS,
+                     "threefry_split_kernel": STEPS, "threefry_uniform_kernel": 0,
+                     "lander_terrain_kernel": STEPS},
+          f"graphed fused rollout: device kernels {counts} in {STEPS} steps")
 
     env_f_cpu = LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True), device="cpu")
     small = {}
@@ -3313,11 +3375,13 @@ def main():
         e = env if label == "split" else env_f
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        e.rollout_batch(states, policy, steps, params)
+        with torch.no_grad():
+            e.rollout_batch(states, policy, steps, params)
         torch.cuda.synchronize()
         rates[label].append(B * steps / (time.perf_counter() - t0))
     rate, fused_rate = max(rates["split"]), max(rates["fused"])
-    print(f"[time] LunarLander rollout B={B}: split {rate:.1f}, fused {fused_rate:.1f} "
+    print(f"[time] LunarLander rollout B={B} under no_grad (CUDA graphs; each env's first turn "
+          f"captures): split {rate:.1f}, fused {fused_rate:.1f} "
           f"env-steps/s (best of 2 turns each of {steps} chained steps, one sync; turns "
           f"split {[round(x, 1) for x in rates['split']]}, fused "
           f"{[round(x, 1) for x in rates['fused']]}) on {gpu}")

@@ -6,6 +6,9 @@ The port of ``utils/profiling.py``:
   profiler traces (``torch.profiler.record_function``, the twin of
   ``jax.named_scope``) while spans are on, and a shared no-op otherwise;
 * ``spans``: turn the spans on for a block;
+* ``edges``: report every span's edges to a callback for a block, in
+  place of the spans (how ``envs/plane_env.py`` cuts a captured CUDA graph
+  of the rollout step at its spans);
 * ``trace``: capture a ``torch.profiler`` trace of a block, spans on, and
   write it as a Chrome trace (``chrome://tracing``, Perfetto) under
   ``log_dir``.
@@ -27,14 +30,48 @@ import torch
 
 _ON = False
 _OFF = contextlib.nullcontext()
+_EDGES = None  # the callback of :func:`edges` while one is active
 
 
 def named(name: str):
     """A span named ``name``: ``record_function(name)`` while spans are on
-    (:func:`spans`), a shared ``nullcontext`` otherwise."""
+    (:func:`spans`), a shared ``nullcontext`` otherwise; inside
+    :func:`edges`, its edges go to that block's callback."""
+    if _EDGES is not None:
+        return _Edge(name, _EDGES)
     if _ON:
         return torch.profiler.record_function(name)
     return _OFF
+
+
+class _Edge:
+    """A span seen by :func:`edges`: ``cut(name, True)`` on entry and
+    ``cut(name, False)`` on a clean exit (an exception passes untouched)."""
+
+    __slots__ = ("name", "cut")
+
+    def __init__(self, name, cut):
+        self.name, self.cut = name, cut
+
+    def __enter__(self):
+        self.cut(self.name, True)
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.cut(self.name, False)
+
+
+@contextlib.contextmanager
+def edges(cut):
+    """Inside the block, every span calls ``cut(name, opening)`` at its two
+    edges instead of opening a profiler range, spans on or off; the
+    previous callback comes back on exit, exceptions included."""
+    global _EDGES
+    before, _EDGES = _EDGES, cut
+    try:
+        yield
+    finally:
+        _EDGES = before
 
 
 @contextlib.contextmanager

@@ -37,6 +37,7 @@ from torch_scenarios import (
 )
 
 from parallax_tpu_torch.engine import batched as tb
+from parallax_tpu_torch.envs import plane_env
 from parallax_tpu_torch.envs.billiards import Billiards, BilliardsConfig
 from parallax_tpu_torch.envs.lunar_lander import (
     MAX_VERTS,
@@ -49,6 +50,7 @@ from parallax_tpu_torch.envs.robocup import RoboCup, RoboCupConfig
 from parallax_tpu_torch.ops import contact_solver, fused_step, threefry
 from parallax_tpu_torch.parallel import rollout
 from parallax_tpu_torch.utils import prng
+from parallax_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 ATOL = 1e-5  # kernel vs plain version: float32 rounding and sum order
 RTOL = 2e-4  # the reverse pass: the JAX package's bar for its Pallas backward
@@ -1012,3 +1014,147 @@ def test_threefry_refuses_bad_keys_on_card(card):
         terrain_planes_batch(keys.reshape(8, 8, 2))
     assert (threefry.split_launches, threefry.uniform_launches,
             threefry.terrain_launches) == before
+
+
+# -- the rollout's step replayed from CUDA graphs (envs/plane_env.py) --------
+
+_GRAPH_ENVS = {
+    "lander": lambda: LunarLander(LanderConfig(broadphase=False, use_cuda_fused=True),
+                                  device="cuda"),
+    "robocup": lambda: RoboCup(RoboCupConfig(n_robots_per_team=6, use_cuda_fused=True),
+                               device="cuda"),
+    "billiards48": lambda: Billiards(BilliardsConfig(n_object=47), device="cuda"),
+}
+
+
+def _mlp_params(env, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"w1": torch.randn((env.observation_size, 32), generator=g, device="cuda") * 0.3,
+            "w2": torch.randn((32, env.action_size), generator=g, device="cuda") * 0.1}
+
+
+def _mlp(p, obs):
+    return torch.tanh(torch.tanh(obs @ p["w1"]) @ p["w2"])
+
+
+def _fragments(env, states, params, graphed, n=3, steps=32):
+    """``n`` fragments of ``steps`` steps, each from the last one's final
+    states: under ``no_grad`` (the graphs) or under autograd with nothing
+    requiring grad (the eager step).  The policy's second layer is negated
+    in place before the last fragment.  Returns each fragment's ``(final,
+    traj)`` and a copy of each taken as it returned."""
+    p = {k: v.clone() for k, v in params.items()}
+    out, kept = [], []
+    for i in range(n):
+        if i == n - 1:
+            p["w2"].neg_()
+        with torch.set_grad_enabled(not graphed):
+            states, traj = env.rollout_batch(states, _mlp, steps, p)
+        out.append((states, traj))
+        kept.append(tree_map(torch.clone, (states, traj)))
+    return out, kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_GRAPH_ENVS))
+def test_graphed_rollout_equals_the_eager_one_on_card(card, name):
+    """Three 32-step fragments at B=4,096 on the fused lander, RoboCup
+    Division B (fused) and billiards48 (split): replayed from CUDA graphs
+    (the first step eager, the second captured, 95 replayed) they equal the
+    eager step's fragments to the bit, the policy's weights changed in
+    place between fragments included; and every fragment's returned states
+    and trajectory still hold their values after the later fragments ran,
+    so none of them lives in the graphs' memory."""
+    env = _GRAPH_ENVS[name]()
+    states = env.reset_fn_batch(_keys(4096, 31))
+    params = _mlp_params(env, 32)
+    g0, e0 = plane_env.graph_steps, plane_env.eager_steps
+    graphed, kept = _fragments(env, states, params, graphed=True)
+    assert (plane_env.graph_steps - g0, plane_env.eager_steps - e0) == (95, 1)
+    eager, _ = _fragments(env, states, params, graphed=False)
+    assert (plane_env.graph_steps - g0, plane_env.eager_steps - e0) == (95, 97)
+    torch.cuda.synchronize()
+    for got, want, copy in zip(graphed, eager, kept):
+        for x, y, z in zip(tree_leaves(got), tree_leaves(want), tree_leaves(copy)):
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+_GRAPH_KERNELS = ("fused_step_kernel", "contact_solve_kernel", "threefry_split_kernel",
+                  "lander_terrain_kernel")
+
+
+def _device_kernels(fn):
+    """``fn()`` under ``torch.profiler``: how many device kernels of each of
+    ``_GRAPH_KERNELS`` ran, a graph's replays included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return tuple(sum(k in n for n in names) for k in _GRAPH_KERNELS)
+
+
+@pytest.mark.cuda
+def test_graphs_per_wave_shape_and_launch_counts_on_card(card):
+    """A new batch gets graphs of its own, and so does a chunked rollout's
+    short last wave; the env keeps only the shapes of its last call, and a
+    train step keeps none and replays none.  The kernels' launch counters
+    count the host's calls (a shape's warm-up step and its capture); ten
+    replayed steps run ten of each kernel on the device, by the profiler."""
+    env = _GRAPH_ENVS["lander"]()
+    params = _mlp_params(env, 33)
+
+    def host():
+        return (fused_step.launches, contact_solver.launches, threefry.split_launches,
+                threefry.terrain_launches, plane_env.graph_steps, plane_env.eager_steps)
+
+    # (batch, max_chunk, profiled, wave shapes kept, what ten steps count: on
+    # the host, and on the device where profiled)
+    cases = ((256, None, False, 1, (2, 0, 2, 2, 9, 1), None),
+             (256, None, True, 1, (0, 0, 0, 0, 10, 0), (10, 0, 10, 10)),
+             (640, 512, False, 2, (4, 0, 4, 4, 18, 2), None),
+             (512, None, True, 1, (0, 0, 0, 0, 10, 0), (10, 0, 10, 10)))
+    with torch.no_grad():
+        for B, chunk, profiled, shapes, want, want_device in cases:
+            st = env.reset_fn_batch(_keys(B, 34))
+            torch.cuda.synchronize()
+            before, got = host(), {}
+
+            def run():
+                got["traj"] = env.rollout_batch(st, _mlp, 10, params, max_chunk=chunk)[1]
+
+            device = _device_kernels(run) if profiled else run()
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(host(), before)) == want, B
+            assert device == want_device, B
+            assert len(env._step_graphs) == shapes and got["traj"].obs.shape[:2] == (10, B)
+
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    loss_fn = rollout.make_loss_fn(env, _mlp, 4, checkpoint_segments=2)
+    g0 = plane_env.graph_steps
+    loss, _ = loss_fn(p, env.reset_fn_batch(_keys(256, 35)))
+    torch.autograd.grad(loss, list(p.values()))
+    assert plane_env.graph_steps == g0 and not env._step_graphs
+
+
+@pytest.mark.cuda
+def test_a_step_that_cannot_be_captured_raises_on_card(card):
+    """A hook that reads a value back to the host runs in the eager warm-up
+    step and cannot run inside a capture: the rollout raises, naming the
+    step and the span, and does not fall back to the eager step."""
+    env = _GRAPH_ENVS["lander"]()
+    post = env.plane_post
+
+    def reading_post(*args):
+        out = post(*args)
+        float(out[2].sum())  # a host read of the reward
+        return out
+
+    env.plane_post = reading_post
+    e0 = plane_env.eager_steps
+    with torch.no_grad(), pytest.raises(RuntimeError, match=r"rollout step.*inside px\.post"):
+        env.rollout_batch(env.reset_fn_batch(_keys(256, 36)), _mlp, 3, _mlp_params(env, 37))
+    assert plane_env.eager_steps == e0 + 1
+    torch.cuda.synchronize()
